@@ -1,7 +1,9 @@
 """User-facing API of the port (counterpart of ``bliss_tpu/api.py``).
 
-``analyze_pcm`` runs the main analysis path on decoded PCM; ``distance``
-and ``cosine_similarity`` compare force vectors. Decoding files, ``Song``
+``analyze_pcm`` analyzes decoded PCM and ``analyze_features`` a PCM batch,
+under the main path's config or another that the port runs (the hybrid
+``AnalysisConfig.for_gpu_hybrid()`` finishes on the host); ``distance`` and
+``cosine_similarity`` compare force vectors. Decoding files, ``Song``
 objects and the library pipeline are not ported yet (ROADMAP M4).
 """
 
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from bliss_tpu_torch.config import AnalysisConfig
-from bliss_tpu_torch.features.analyze import analyze_batch
+from bliss_tpu_torch.features.analyze import analyze_batch, analyze_batch_hybrid
 from bliss_tpu_torch.features.types import PCMBatch
 from bliss_tpu_torch.sim import distance as _sim
 
@@ -39,6 +41,15 @@ class ForceVector:
         )
 
 
+def analyze_features(batch: PCMBatch, cfg: AnalysisConfig) -> np.ndarray:
+    """[B, 4] float32 force vectors of a PCM batch under ``cfg``: a
+    ``tempo_finish="host"`` config goes through ``analyze_batch_hybrid``,
+    any other through ``analyze_batch``."""
+    if cfg.tempo_finish == "host":
+        return analyze_batch_hybrid(batch, cfg).numpy()
+    return analyze_batch(batch, cfg).cpu().numpy()
+
+
 def analyze_pcm(
     arrays: list[np.ndarray],
     durations: list[int],
@@ -53,7 +64,7 @@ def analyze_pcm(
     batch = PCMBatch.from_arrays(
         arrays, durations, pad_multiple=cfg.pad_multiple, device=device
     )
-    return analyze_batch(batch, cfg).cpu().numpy()
+    return analyze_features(batch, cfg)
 
 
 def _as_vector(v) -> torch.Tensor:

@@ -46,11 +46,11 @@ class AnalysisConfig:
     fused_kernel: bool = False
 
     # Fused-kernel FIR mode of the TPU kernels ("split" or "exact"). The
-    # GPU kernel runs the FIR in float64 either way.
+    # GPU kernels run the FIR in float64 either way.
     fused_conv: str = "split"
 
     # STFT precision of the TPU kernels ("precise" or "fast"). The GPU
-    # kernel computes the spectrum in full float32 either way.
+    # kernels compute the spectrum in full float32 either way.
     stft_conv: str = "precise"
 
     # Single-pass mode: one kernel computes amplitude + tempo + STFT power
@@ -124,6 +124,19 @@ class AnalysisConfig:
             single_pass=True,
         )
 
+    @staticmethod
+    def for_gpu_hybrid() -> "AnalysisConfig":
+        """The two-kernel hybrid config, with exactly the field values of the
+        JAX package's ``for_tpu_hybrid()``: the sample-stats (K2) and
+        spectrum (K3) kernels on the device, then the float64 NumPy/SciPy
+        envelope finish on the host."""
+        return AnalysisConfig(
+            dtype="float32",
+            amplitude_mode="poly",
+            tempo_finish="host",
+            fused_kernel=True,
+        )
+
 
 def check_supported(cfg: AnalysisConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not run
@@ -137,16 +150,10 @@ def check_supported(cfg: AnalysisConfig) -> None:
         raise NotImplementedError(
             "fused_kernel=False (the XLA-path modes) is ROADMAP item M7"
         )
-    if not cfg.single_pass:
+    if cfg.tempo_finish == "device":
         raise NotImplementedError(
-            "single_pass=False (the two-kernel configs, kernels K2 and K3) "
-            "is ROADMAP item M9"
-        )
-    if cfg.tempo_finish != "device_exact":
-        item = "M9" if cfg.tempo_finish == "host" else "M7"
-        raise NotImplementedError(
-            f"tempo_finish={cfg.tempo_finish!r} is ROADMAP item {item}; the "
-            "port runs 'device_exact'"
+            "tempo_finish='device' (the working-dtype finish) is ROADMAP item "
+            "M7; the port runs 'device_exact' and 'host'"
         )
     if cfg.band_taps > 129:
         raise NotImplementedError(

@@ -18,7 +18,6 @@ import torch
 
 from bliss_tpu_torch import tables
 from bliss_tpu_torch.config import AnalysisConfig
-from bliss_tpu_torch.kernels.stft import hann_dft_table
 
 # The tempo path's tables stay float64 (FIR, warm-up correction and the
 # IIR block operators); the amplitude and spectrum tables are float32.
@@ -30,6 +29,8 @@ def reference_arrays(
 ) -> dict[str, np.ndarray]:
     """The NumPy tables the main path reads, keyed as ``tables_from_numpy``
     expects."""
+    from bliss_tpu_torch.kernels.stft import hann_dft_table  # stft imports this module
+
     _, _, c_pos = tables.amplitude_cdf_poly()
     L, Z, M, N = tables.iir_block_operator(iir_block)
     return {

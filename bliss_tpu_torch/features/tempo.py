@@ -9,17 +9,22 @@ behavior, epsilon-peak count; tempo = 4*beats/duration - 30.4
 (reference: src/tempo_atk_sort.c:163-284).
 
 The reference computes this chain in C ``double`` and its eps=1e-6 peak
-compare needs ~2^-27 relative precision, so it runs here in native float64
-on the tensor's device: the "device_exact" finish, stage for stage as
-``envelope_finish_host``. The JAX package's double-single emulation
-(``tempo_exact.py``, ``dsp/ddmath.py``) exists only because the TPU lacks
-float64 and has no counterpart here.
+compare needs ~2^-27 relative precision, so it runs in float64 in both of
+the port's finishes: ``envelope_finish_device``, on the tensor's device
+(the "device_exact" finish), and ``envelope_finish_host``, NumPy/SciPy on
+the host (the "host" finish of the hybrid config), stage for stage alike.
+The JAX package's double-single emulation (``tempo_exact.py``,
+``dsp/ddmath.py``) exists only because the TPU lacks float64 and has no
+counterpart here.
 """
 
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from bliss_tpu_torch import constants as C
@@ -97,7 +102,8 @@ def envelope_finish_device(fa, n, durations, cfg: AnalysisConfig):
     [B] attack) float32, computed in float64 on fa's device."""
     if cfg.tempo_finish != "device_exact":
         raise NotImplementedError(
-            f"tempo_finish={cfg.tempo_finish!r} is not ported (ROADMAP M7/M9)"
+            f"tempo_finish={cfg.tempo_finish!r} does not finish on the device "
+            "here: 'host' is envelope_finish_host, 'device' is ROADMAP M7"
         )
     wa, wa_edges, ss_src, last_excluded, j, n2 = _envelope_pipeline(fa, n, cfg)
     atk_sum = torch.sum(wa * last_excluded[:, None, :], dim=(1, 2))
@@ -106,3 +112,103 @@ def envelope_finish_device(fa, n, durations, cfg: AnalysisConfig):
     tempo = C.TEMPO_SCALE * beat.to(torch.float64) / durations.to(torch.float64) + C.TEMPO_BIAS
     attack = C.ATTACK_SCALE * atk_sum / n.to(torch.float64) + C.ATTACK_BIAS
     return tempo.to(torch.float32), attack.to(torch.float32)
+
+
+def _box_sum_host(x, width):
+    """Centered zero-padded box sums along the last axis, vectorized over
+    leading axes. scipy.ndimage's C moving average; its float64 running-sum
+    drift is ~2e-14 relative, eight orders below the 1e-6 epsilon the peak
+    detector compares at."""
+    from scipy.ndimage import uniform_filter1d
+
+    return uniform_filter1d(x, size=width, axis=-1, mode="constant", cval=0.0) * width
+
+
+def envelope_finish_host(
+    fa, n_samples, durations, workers: int | None = None, return_aux=False
+):
+    """Host float64 finish of the tempo path: fa [B, NBF] (or [B, NB, NBF]
+    multi-band) NumPy energies, n_samples/durations [B] -> ([B] tempo,
+    [B] attack) float32 NumPy arrays; with ``return_aux`` also
+    (r2, peaks, mid), the smoothed envelope, the peak mask over r2[:, 1:-1]
+    and the valid-range mask.
+
+    Rows are independent, so the batch splits across a thread pool (NumPy
+    and SciPy release the GIL on the large operations); the results are
+    bitwise identical to ``workers=1``. ``workers=None`` takes
+    min(8, os.cpu_count())."""
+    from scipy.signal import lfilter
+
+    fa = np.asarray(fa, np.float64)
+    if fa.ndim == 2:
+        fa = fa[:, None, :]
+    n = np.asarray(n_samples, np.int64)
+    dur = np.asarray(durations, np.float64)
+    B, NB, NBF = fa.shape
+
+    if workers is None:
+        workers = min(8, os.cpu_count() or 1)
+    if workers > 1 and B >= 2 * workers:
+        bounds = np.linspace(0, B, workers + 1, dtype=int)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            parts = list(
+                pool.map(
+                    lambda se: envelope_finish_host(
+                        fa[se[0] : se[1]], n[se[0] : se[1]], dur[se[0] : se[1]],
+                        workers=1, return_aux=return_aux,
+                    ),
+                    zip(bounds[:-1], bounds[1:]),
+                )
+            )
+        tempo = np.concatenate([p[0] for p in parts])
+        attack = np.concatenate([p[1] for p in parts])
+        if return_aux:
+            # every chunk's aux is batch-leading with the same width (NBF
+            # is shared), so concatenation equals the single-thread aux
+            aux = tuple(np.concatenate([p[2][i] for p in parts]) for i in range(3))
+            return tempo, attack, aux
+        return tempo, attack
+    nbf = (n - n % C.WINDOW_SIZE) // C.TEMPO_HOP
+    n2 = 2 * nbf  # [B]
+
+    u = np.zeros((B, NB, 2 * NBF))
+    u[..., 0::2] = np.log(1.0 + C.MU * fa) / np.log(1.0 + C.MU)
+    lp = lfilter(C.BUTTER_B, C.BUTTER_A, u, axis=-1)
+    diff = np.concatenate(
+        [lp[..., :1], np.maximum(lp[..., 1:] - lp[..., :-1], 0.0)], axis=-1
+    )
+    wa = C.ENV_LP_WEIGHT * lp + C.ENV_DIFF_WEIGHT * diff / 10.0  # [B, NB, 2NBF]
+
+    j = np.arange(2 * NBF)[None, :]
+    last_excluded = j <= (n2 - 2)[:, None]
+    atk_sum = np.sum(wa * last_excluded[:, None, :], axis=(1, 2))
+
+    # Band-summed envelope; the pass-1 edge slots keep the stale values of
+    # the output buffer, band 0's envelope for any band count (reference:
+    # src/tempo_atk_sort.c:267-270 smooths into weighted_average[0]).
+    wa_edges = wa[:, 0]
+    ss = np.sum(wa, axis=1) * last_excluded
+    width = C.RECT_FILTER_WIDTH
+    half = width // 2
+    box1 = _box_sum_host(ss, width)
+    n2c = n2[:, None]
+    edge = (j <= half - 1) | (j >= n2c - half)
+    r1 = np.where(edge, wa_edges, np.where(j == n2c - half - 1, wa_edges + box1, box1))
+    r1 = r1 / width
+    box2 = _box_sum_host(r1, width)
+    mid = (j >= half) & (j <= n2c - half - 1)
+    r2 = np.where(mid, box2 / width, 0.0)
+
+    d_prev = r2[:, 1:-1] - r2[:, :-2]
+    d_next = r2[:, 1:-1] - r2[:, 2:]
+    inrange = j[:, 1:-1] <= (n2 - 2)[:, None]
+    peaks = (d_prev > C.PEAK_EPSILON) & (d_next > C.PEAK_EPSILON) & inrange
+    beat = np.sum(peaks, axis=1)
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        # duration <= 0 gives an inf/nan tempo: the reference's own behavior
+        tempo = C.TEMPO_SCALE * beat / dur + C.TEMPO_BIAS
+        attack = C.ATTACK_SCALE * atk_sum / n + C.ATTACK_BIAS
+    if return_aux:
+        return tempo.astype(np.float32), attack.astype(np.float32), (r2, peaks, mid)
+    return tempo.astype(np.float32), attack.astype(np.float32)

@@ -5,6 +5,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for sm_90a into
 and is loaded with ``ctypes``. The hash covers every file under ``csrc/``
 and the compiler flags, so an edited source rebuilds. Nothing is built when
 a module is imported, and a missing ``nvcc`` or a failed build raises.
+
+``fused_all_library`` binds the entry points of ``csrc/fused_all.cu``,
+which the wrappers of K1, K2 and K3 share, and ``launch`` calls one of them
+on the tensor's current stream and raises if the launch failed.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bliss_tpu_torch"
@@ -82,3 +88,46 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib
+
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of csrc/fused_all.cu's entry points (see its extern "C" block)
+_STATS = [_VP, _I, _I, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP, _I, _I, _VP, _VP, _VP]
+_POWER = [_VP, _I, _I, _VP, _VP, _VP, _VP, _I]
+_SIGNATURES = {
+    "bliss_fused_stats": _STATS + [_VP],
+    "bliss_stft_power": _POWER + [_VP],
+    "bliss_fused_all": _STATS + [_VP, _VP, _VP, _I, _VP],
+    "bliss_power_tile": [],
+}
+_bound: ctypes.CDLL | None = None
+
+
+def fused_all_library() -> ctypes.CDLL:
+    """``csrc/fused_all.cu``'s library with every entry point's argument
+    and return types declared."""
+    global _bound
+    if _bound is None:
+        lib = load("fused_all")
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+        lib.bliss_cuda_error_string.argtypes = [_I]
+        lib.bliss_cuda_error_string.restype = ctypes.c_char_p
+        _bound = lib
+    return _bound
+
+
+def launch(fn: str, device, *args) -> None:
+    """Calls entry point ``fn`` with ``args`` and the current stream of
+    CUDA ``device`` as its last argument; raises RuntimeError with CUDA's
+    message if the launch was refused."""
+    lib = fused_all_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        msg = lib.bliss_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")

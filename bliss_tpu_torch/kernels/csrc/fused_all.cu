@@ -1,34 +1,44 @@
-// Fused sample statistics and summed power spectrum of an int16 PCM batch,
+// Sample statistics and summed power spectrum of an int16 PCM batch,
 // hand-written for Hopper (sm_90a), bound through a plain C interface.
 //
-// Replaces the TPU kernel bliss_tpu/kernels/fused_all.py::_kernel (launched
-// by fused_all_call). It computes what that wrapper returns, not the TPU
-// kernel's layout: the TPU kernel splits int16 samples and its tables into
-// bf16 pieces for the MXU, folds the stereo downmix and its C-division
-// correction into a duplicated-row DFT matrix and stacks block pieces to fit
-// (8, 128) tiles. Here the integer samples are read directly and every
-// product is an FMA on the CUDA cores, with no split and no TF32: fp32 for
-// the amplitude weights and the spectrum, fp64 for the tempo FIR and its
-// sums. The tempo analyzer's peak detector compares envelope differences
-// with eps = 1e-6, and on noisy music a few of its peaks per song sit
-// within 1e-4 of that margin; two fp32 computations of the window energies
-// that agree to ~4e-7 relative (this kernel against its plain version)
-// still counted different beats on 3 of 64 three-minute songs. In fp64 the
-// two agree to ~1e-15 and count the same beats.
+// Replaces three TPU kernels with two CUDA kernels and three entry points:
 //
-// Two launches, one read of the PCM each:
+//   K1 bliss_tpu/kernels/fused_all.py::_kernel (fused_all_call)
+//      -> bliss_fused_all: stats_kernel, then power_kernel;
+//   K2 bliss_tpu/kernels/fused_stats.py::_kernel (fused_stats_call)
+//      -> bliss_fused_stats: stats_kernel;
+//   K3 bliss_tpu/kernels/pallas_stft.py::_kernel (stft_power)
+//      -> bliss_stft_power: power_kernel.
+//
+// K1 is K2 and K3 in one pallas_call on the TPU; here it is the same two
+// launches, one read of the PCM each, so the three wrappers share one
+// source and one library. Each computes what its TPU wrapper returns, not
+// the TPU kernel's layout: the TPU kernels split int16 samples and their
+// tables into bf16 pieces for the MXU, fold the stereo downmix and its
+// C-division correction into a duplicated-row DFT matrix and stack block
+// pieces to fit (8, 128) tiles. Here the integer samples are read directly
+// and every product is an FMA on the CUDA cores, with no split and no TF32:
+// fp32 for the amplitude weights and the spectrum, fp64 for the tempo FIR
+// and its sums. The tempo analyzer's peak detector compares envelope
+// differences with eps = 1e-6, and on noisy music a few of its peaks per
+// song sit within 1e-4 of that margin; two fp32 computations of the window
+// energies that agree to ~4e-7 relative (this kernel against its plain
+// version) still counted different beats on 3 of 64 three-minute songs. In
+// fp64 the two agree to ~1e-15 and count the same beats.
 //
 //  * stats_kernel, grid (hop-block ranges, songs), 256 threads = one
 //    256-sample hop block at a time. It stages the block's samples,
 //    normalized (xn = alpha*s + beta), behind a (taps-1)-sample history in
-//    shared memory; the history before sample 0 is normalized zero. Per hop
-//    block it writes the amplitude weight sum sum T(1000 - |s+1|) (Clenshaw
-//    series of the smoothing CDF) and an any-nonzero flag, and per band the
-//    sums (of v, v^2 and (-1)^t v) of three pieces of the causal FIR:
-//    z over the block's tail t >= K (K = taps-1), z over its head t < K,
-//    and over the head the window-reset FIR y = z + delta, delta = M h
-//    (M the band's fir_warmup_correction, h the K samples before the
-//    block). A window is blocks (w, w+1) with its FIR reset at w's start,
+//    shared memory. The history before sample 0 is alpha*halo0 + beta when
+//    the caller passes halo0 [B, taps-1] (a sequence shard's view of the
+//    previous shard's tail), else normalized zero. Per hop block it writes
+//    the amplitude weight sum sum T(1000 - |s+1|) (Clenshaw series of the
+//    smoothing CDF) and an any-nonzero flag, and per band the sums (of v,
+//    v^2 and (-1)^t v) of three pieces of the causal FIR: z over the
+//    block's tail t >= K (K = taps-1), z over its head t < K, and over the
+//    head the window-reset FIR y = z + delta, delta = M h (M the band's
+//    fir_warmup_correction, h the K samples before the block, halo0's for
+//    block 0). A window is blocks (w, w+1) with its FIR reset at w's start,
 //    so its sums are reset(w) + tail(w) + head(w+1) + tail(w+1): no term
 //    cancels another. (The TPU kernel sums z over whole blocks and adds
 //    delta corrections, which cancels the history's share of z^2 and
@@ -36,18 +46,20 @@
 //    start just after a loud-to-silence edge.)
 //  * power_kernel, grid (frame tiles, column tiles, songs). A tiled fp32
 //    GEMM of the mono frames, mono = c_div(l + r, 2) in integers, with the
-//    [512, 512] Hann-folded DFT table (re | im of bins 0..255); frames at or
-//    past the song's n_frames count as zero, and tiles wholly past it exit.
-//    Each tile writes sum over its frames of y^2 per column to a scratch
+//    [512, 512] Hann-folded DFT table (re | im of bins 0..255). Local frame
+//    f counts while offset + f < n_frames, offset the song's frame_offset
+//    (a sequence shard's first global frame; 0 when none is passed); frames
+//    that do not count are zero, and tiles wholly past the count exit. Each
+//    tile writes sum over its frames of y^2 per column to a scratch
 //    [B, tiles, 512] that the wrapper reduces with a deterministic sum.
 //
-// What bounds it on this card: the spectrum is ~2*512*512 FLOP per
+// What bounds them on this card: the spectrum is ~2*512*512 FLOP per
 // 512-sample frame, about 0.27 TFLOP at B=64, L=2^23, against a ~1 GiB PCM
-// read, so the kernel is compute-bound on the fp32 CUDA cores (67 TFLOP/s
+// read, so power_kernel is compute-bound on the fp32 CUDA cores (67 TFLOP/s
 // peak). The stats pass is ~60 FLOP per sample (fp64 for the FIR) and
-// bound by the read. This
-// first version is plain shared-memory tiling; a wgmma or FFT spectrum and
-// fusing both passes into one read are later work.
+// bound by the read. This first version is plain shared-memory tiling; a
+// wgmma or FFT spectrum and fusing both passes into one read are later
+// work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,9 +130,10 @@ __device__ __forceinline__ float cheb_T(float m, const float* c, int n,
 __global__ void __launch_bounds__(BLK) stats_kernel(
     const int16_t* __restrict__ x, int L, int nbf,
     const float* __restrict__ alpha, const float* __restrict__ beta,
-    const float* __restrict__ cheb, int ncheb, float halfwidth,
-    const double* __restrict__ fir, const double* __restrict__ warm, int nb,
-    int taps, float* __restrict__ wsum, float* __restrict__ rownz,
+    const int16_t* __restrict__ halo0, const float* __restrict__ cheb,
+    int ncheb, float halfwidth, const double* __restrict__ fir,
+    const double* __restrict__ warm, int nb, int taps,
+    float* __restrict__ wsum, float* __restrict__ rownz,
     double* __restrict__ stats) {
   __shared__ double ext[MAX_K + BLK];  // [history | block], normalized
   __shared__ float cs[MAX_CHEB];
@@ -131,6 +144,7 @@ __global__ void __launch_bounds__(BLK) stats_kernel(
   if (t < ncheb) cs[t] = cheb[t];
   const double a = alpha[b], be = beta[b];
   const int16_t* xb = x + (size_t)b * L;
+  const int16_t* hb = halo0 ? halo0 + (size_t)b * K : nullptr;
   const int blk0 = blockIdx.x * BLOCKS_PER_CTA;
   const int blk1 = min(blk0 + BLOCKS_PER_CTA, nbf);
   const double sign = (t & 1) ? -1.0 : 1.0;  // (-1)^t; blocks start even
@@ -141,7 +155,9 @@ __global__ void __launch_bounds__(BLK) stats_kernel(
     const float s = (float)xb[i0 + t];
     if (t < K) {
       const long h = i0 - K + t;
-      ext[t] = h >= 0 ? fma(a, (double)xb[h], be) : 0.0;
+      // before sample 0: halo0's raw samples, else normalized zero
+      ext[t] = h >= 0 ? fma(a, (double)xb[h], be)
+                      : (hb ? fma(a, (double)hb[h + K], be) : 0.0);
     }
     ext[K + t] = fma(a, (double)s, be);
     const float w = cheb_T(1000.f - fabsf(s + 1.f), cs, ncheb, halfwidth);
@@ -176,14 +192,20 @@ __global__ void __launch_bounds__(BLK) stats_kernel(
 
 __global__ void __launch_bounds__(PTHREADS) power_kernel(
     const int16_t* __restrict__ x, int L, const int* __restrict__ n_frames,
-    const float* __restrict__ dft, float* __restrict__ part, int ntiles) {
+    const int* __restrict__ frame_offset, const float* __restrict__ dft,
+    float* __restrict__ part, int ntiles) {
   __shared__ float As[PK][PM + 4];  // mono frames, sample-major
   __shared__ float Bs[PK][PN];
   __shared__ float red[PM / 4][PN];
 
   const int tile = blockIdx.x, col0 = blockIdx.y * PN, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int nf = min(n_frames[b], L / (2 * WIN));
+  // local frames that count: clamp(n_frames - offset, 0, L/1024), in 64
+  // bits so that no offset wraps the count
+  const long long cap = L / (2 * WIN);
+  const long long left =
+      (long long)n_frames[b] - (frame_offset ? frame_offset[b] : 0);
+  const int nf = (int)(left < 0 ? 0 : (left > cap ? cap : left));
   const int f0 = tile * PM;
   float* out = part + ((size_t)b * ntiles + tile) * NCOL + col0;
   if (f0 >= nf) {
@@ -246,21 +268,11 @@ __global__ void __launch_bounds__(PTHREADS) power_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Frames per power tile: the wrapper sizes the scratch [B, tiles, 512].
-int bliss_fused_all_power_tile() { return PM; }
-
-// wsum, rownz: float [B, L/256]; fir: double [nb, taps]; warm: double
-// [nb, taps-1, taps-1]; stats: double [B, nb, 9, L/256], rows
-// (tail, head, reset) x (sum v, sum v^2, sum (-1)^t v).
-int bliss_fused_all_stats(const void* x, int B, int L, const void* alpha,
-                          const void* beta, const void* cheb, int ncheb,
-                          float halfwidth, const void* fir, const void* warm,
-                          int nb, int taps, void* wsum, void* rownz,
-                          void* stats, void* stream) {
+int launch_stats(const void* x, int B, int L, const void* alpha,
+                 const void* beta, const void* halo0, const void* cheb,
+                 int ncheb, float halfwidth, const void* fir, const void* warm,
+                 int nb, int taps, void* wsum, void* rownz, void* stats,
+                 void* stream) {
   if (B < 1 || B > 65535 || L < BLK || L % BLK || nb < 1 || taps < 2 ||
       taps - 1 > MAX_K || ncheb < 1 || ncheb > MAX_CHEB)
     return (int)cudaErrorInvalidValue;
@@ -268,25 +280,73 @@ int bliss_fused_all_stats(const void* x, int B, int L, const void* alpha,
   const dim3 grid((nbf + BLOCKS_PER_CTA - 1) / BLOCKS_PER_CTA, B);
   stats_kernel<<<grid, BLK, 0, (cudaStream_t)stream>>>(
       (const int16_t*)x, L, nbf, (const float*)alpha, (const float*)beta,
-      (const float*)cheb, ncheb, halfwidth, (const double*)fir,
-      (const double*)warm, nb, taps, (float*)wsum, (float*)rownz,
-      (double*)stats);
+      (const int16_t*)halo0, (const float*)cheb, ncheb, halfwidth,
+      (const double*)fir, (const double*)warm, nb, taps, (float*)wsum,
+      (float*)rownz, (double*)stats);
   return (int)cudaGetLastError();
 }
 
-// part: float [B, ntiles, 512] with ntiles = ceil((L/1024) / tile).
-int bliss_fused_all_power(const void* x, int B, int L, const void* n_frames,
-                          const void* dft, void* part, int ntiles,
-                          void* stream) {
+int launch_power(const void* x, int B, int L, const void* n_frames,
+                 const void* frame_offset, const void* dft, void* part,
+                 int ntiles, void* stream) {
   const int nframes = L / (2 * WIN);
   if (B < 1 || B > 65535 || L % (2 * WIN) || nframes < 1 ||
       ntiles != (nframes + PM - 1) / PM)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(ntiles, NCOL / PN, B);
   power_kernel<<<grid, PTHREADS, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)x, L, (const int*)n_frames, (const float*)dft,
-      (float*)part, ntiles);
+      (const int16_t*)x, L, (const int*)n_frames, (const int*)frame_offset,
+      (const float*)dft, (float*)part, ntiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Frames per power tile: the wrappers size the scratch [B, tiles, 512].
+int bliss_power_tile() { return PM; }
+
+// Arguments shared by the entry points. x: int16 [B, L]; alpha, beta:
+// float [B]; halo0: int16 [B, taps-1] or NULL; cheb: float [ncheb]; fir:
+// double [nb, taps]; warm: double [nb, taps-1, taps-1]; wsum, rownz: float
+// [B, L/256]; stats: double [B, nb, 9, L/256], rows (tail, head, reset) x
+// (sum v, sum v^2, sum (-1)^t v); n_frames: int [B]; frame_offset: int [B]
+// or NULL; dft: float [512, 512]; part: float [B, ntiles, 512] with
+// ntiles = ceil((L/1024) / bliss_power_tile()). Each returns the launch's
+// cudaError_t.
+
+// K2: the sample statistics alone. L a multiple of 256.
+int bliss_fused_stats(const void* x, int B, int L, const void* alpha,
+                      const void* beta, const void* halo0, const void* cheb,
+                      int ncheb, float halfwidth, const void* fir,
+                      const void* warm, int nb, int taps, void* wsum,
+                      void* rownz, void* stats, void* stream) {
+  return launch_stats(x, B, L, alpha, beta, halo0, cheb, ncheb, halfwidth,
+                      fir, warm, nb, taps, wsum, rownz, stats, stream);
+}
+
+// K3: the summed power spectrum alone. L a multiple of 1024.
+int bliss_stft_power(const void* x, int B, int L, const void* n_frames,
+                     const void* frame_offset, const void* dft, void* part,
+                     int ntiles, void* stream) {
+  return launch_power(x, B, L, n_frames, frame_offset, dft, part, ntiles,
+                      stream);
+}
+
+// K1: both, with the whole song's frames (no frame offset). L a multiple
+// of 1024.
+int bliss_fused_all(const void* x, int B, int L, const void* alpha,
+                    const void* beta, const void* halo0, const void* cheb,
+                    int ncheb, float halfwidth, const void* fir,
+                    const void* warm, int nb, int taps, void* wsum,
+                    void* rownz, void* stats, const void* n_frames,
+                    const void* dft, void* part, int ntiles, void* stream) {
+  int rc = launch_stats(x, B, L, alpha, beta, halo0, cheb, ncheb, halfwidth,
+                        fir, warm, nb, taps, wsum, rownz, stats, stream);
+  if (rc == 0)
+    rc = launch_power(x, B, L, n_frames, nullptr, dft, part, ntiles, stream);
+  return rc;
 }
 
 const char* bliss_cuda_error_string(int code) {

@@ -6,16 +6,25 @@
 Phases, one line each, stopping at the first failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: compiles ``bliss_tpu_torch/kernels/csrc/fused_all.cu`` for sm_90a
-   from the checkout and prints the build time and ptxas report;
-3. kernel vs plain: the CUDA kernel of ``fused_all_call`` against
-   ``fused_all_reference`` on the same card tensors, (a) on a B=4,
-   L=2^18 batch of edge cases and (b) on the main-path batch B=64, L=2^23,
-   with the warm median of 5 timings of each;
+2. build: compiles ``bliss_tpu_torch/kernels/csrc/fused_all.cu`` (the one
+   source of the three kernels) for sm_90a from the checkout and prints
+   the build time and ptxas report;
+3. kernel vs plain, each kernel's wrapper against its plain version on the
+   same card tensors, (a) on a B=4, L=2^18 batch of edge cases and (b) on
+   the main-path batch B=64, L=2^23, with the warm median of 5 timings of
+   each: K1 ``fused_all_call``; K2 ``fused_stats_call`` (edge batch with
+   and without ``halo0``); K3 ``stft_power`` (edge batch with
+   ``frame_offset`` 0, mid-song and past every song's frames);
 4. the main path: ``bliss_tpu_torch.api.analyze_pcm`` on the seeded B=64,
-   L=2^23 batch, checked finite, launched through the kernel, and held
-   against the same path with the plain version in place of the kernel;
-5. ``distance_matrix`` of the 64 force vectors against NumPy.
+   L=2^23 batch, checked finite, launched through K1, and held against the
+   same path with the plain version in place of the kernel;
+5. the two-kernel path (``for_gpu()`` with ``single_pass=False``) through
+   ``analyze_batch`` on the card-resident main batch, launched through K2
+   and K3 only, and the hybrid path (``AnalysisConfig.for_gpu_hybrid()``:
+   K2, K3, then the float64 host finish) through ``api.analyze_pcm``; each
+   counts the same beats as the main path and as itself with the plain
+   versions in place of the kernels;
+6. ``distance_matrix`` of the 64 force vectors against NumPy.
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -25,7 +34,9 @@ and prints no result. Needs one card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -127,39 +138,37 @@ def compare(name, got, ref, denom, tol):
     return max_abs, max_rel
 
 
-def kernel_vs_plain(fa, batch, label, timed: bool):
-    """Checks fused_all_call's kernel against fused_all_reference on the
-    same card tensors; returns (errors by output, ms, plain_ms)."""
-    from bliss_tpu_torch import constants as C
+def stats_errors(label, k_out, p_out):
+    """K1's or K2's (wsum, rownz, energies, ...) against the plain version:
+    rownz identical; wsum (per-block float32 sums of weights in [0, 1])
+    within 1e-5 of |ref| + 1; energies (float64 in both) within 1e-9 of
+    |ref| + 1e-3 (tests/test_kernels.py:51-52). The two differ only in
+    summation order and FMA contraction."""
+    (kw, kr, ke), (pw, pr, pe) = k_out[:3], p_out[:3]
+    if not torch.equal(kr, pr):
+        raise AssertionError(f"{label}: rownz differs")
+    return {
+        "wsum": compare(f"{label} wsum", kw, pw, pw.abs() + 1.0, 1e-5),
+        "energies": compare(f"{label} energies", ke, pe, pe.abs() + 1e-3, 1e-9),
+    }
 
-    x, n = batch.samples, batch.n_samples
-    alpha, beta, _ = fa.normalization(x, n)
-    n_frames = ((n // C.CHANNELS) // C.WINDOW_SIZE).to(torch.int32)
 
-    def kern():
-        return fa.fused_all_call(x, alpha, beta, n_frames)
+def power_errors(label, kp, pp):
+    """The summed spectrum within 1e-5 of each song's largest bin; a song
+    with no frame that counts must be zero in both."""
+    peak = pp.amax(dim=1, keepdim=True).clamp_min(1e-30)
+    return {"power": compare(f"{label} power", kp, pp, peak, 1e-5)}
 
-    def plain():
-        return fa.fused_all_reference(x, alpha, beta, n_frames)
 
+def kernel_vs_plain(label, kern, plain, errors, timed: bool):
+    """Runs a kernel's wrapper and its plain version on the same card
+    tensors and holds one to the other with ``errors(k_out, p_out)``;
+    returns (errors by output, ms, plain_ms)."""
     k_out = kern()
     torch.cuda.synchronize()
     p_out = plain()
     torch.cuda.synchronize()
-    (kw, kr, ke, kp), (pw, pr, pe, pp) = k_out, p_out
-    if not torch.equal(kr, pr):
-        raise AssertionError(f"{label}: rownz differs")
-    # wsum: per-block float32 sums of weights in [0, 1]; energies (float64
-    # in both): relative to |ref| + 1e-3 (tests/test_kernels.py:51-52);
-    # power: relative to each song's largest bin. The kernel and the plain
-    # version differ only in summation order and FMA contraction.
-    errs = {
-        "wsum": compare("wsum", kw, pw, pw.abs() + 1.0, 1e-5),
-        "energies": compare("energies", ke, pe, pe.abs() + 1e-3, 1e-9),
-        "power": compare(
-            "power", kp, pp, pp.amax(dim=1, keepdim=True).clamp_min(1e-30), 1e-5
-        ),
-    }
+    errs = errors(k_out, p_out)
     ms = plain_ms = None
     if timed:
         ms = cuda_ms(kern)
@@ -167,8 +176,82 @@ def kernel_vs_plain(fa, batch, label, timed: bool):
     detail = ", ".join(
         f"{k} max_abs={a:.3e} max_rel={r:.3e}" for k, (a, r) in errs.items()
     )
-    log(f"kernel vs plain {label}: rownz identical, {detail}")
+    log(f"kernel vs plain {label}: {detail}")
     return errs, ms, plain_ms
+
+
+def check_kernels(batch, label, timed: bool, edge: bool):
+    """K1, K2 and K3 against their plain versions on ``batch``; on the edge
+    batch K2 also runs with a loud random halo0 and K3 with frame offsets.
+    Returns {kernel: (errors, ms, plain_ms)} of the plain-argument runs."""
+    from bliss_tpu_torch.kernels import fused_all as fa
+    from bliss_tpu_torch.kernels import fused_stats as fs
+    from bliss_tpu_torch.kernels import stft
+
+    x, n = batch.samples, batch.n_samples
+    alpha, beta, _ = fs.normalization(x, n)
+    n_frames = stft.frame_counts(n)
+    out = {}
+
+    def k1_errors(k, p):
+        return {**stats_errors("fused_all", k, p), **power_errors("fused_all", k[3], p[3])}
+
+    out["fused_all"] = kernel_vs_plain(
+        f"fused_all {label}",
+        lambda: fa.fused_all_call(x, alpha, beta, n_frames),
+        lambda: fa.fused_all_reference(x, alpha, beta, n_frames),
+        k1_errors, timed,
+    )
+    halos = [None]
+    if edge:
+        rng = np.random.default_rng(SEED + 1)
+        halos.append(torch.from_numpy(
+            rng.integers(-20000, 20000, size=(x.shape[0], 16), dtype=np.int16)
+        ).cuda())
+    for halo0 in halos:
+        res = kernel_vs_plain(
+            f"fused_stats {label}" + (" halo0" if halo0 is not None else ""),
+            lambda: fs.fused_stats_call(x, alpha, beta, halo0),
+            lambda: fs.fused_stats_reference(x, alpha, beta, halo0),
+            lambda k, p: stats_errors("fused_stats", k, p), timed and halo0 is None,
+        )
+        out.setdefault("fused_stats", res)
+    offsets = [None]
+    if edge:
+        offsets += [0, int(n_frames.min()) // 2, 10_000]  # start, mid-song, past
+    def k3_errors(k, p, past):
+        if past and not (bool((k == 0).all()) and bool((p == 0).all())):
+            raise AssertionError("stft_power: frames past n_frames were counted")
+        return power_errors("stft_power", k, p)
+
+    for off in offsets:
+        res = kernel_vs_plain(
+            f"stft_power {label}" + ("" if off is None else f" frame_offset={off}"),
+            lambda: stft.stft_power(x, n, frame_offset=off),
+            lambda: stft.stft_power_reference(x, n, frame_offset=off),
+            lambda k, p: k3_errors(k, p, off == 10_000), timed and off is None,
+        )
+        out.setdefault("stft_power", res)
+    return out
+
+
+def beat_counts(out, durations):
+    dur = np.asarray(durations, np.float64)
+    return np.rint((out[:, 0].astype(np.float64) + 30.4) * dur / 4.0)
+
+
+def same_scores(label, out, ref, what):
+    """Beat counts (the tempo column) identical on every song, the other
+    columns within 1e-3."""
+    if out.shape != (MAIN_B, 4) or not np.isfinite(out).all():
+        raise AssertionError(f"{label} output not finite [64, 4]: {out}")
+    if not np.array_equal(out[:, 0], ref[:, 0]):
+        bad = np.nonzero(out[:, 0] != ref[:, 0])[0]
+        raise AssertionError(f"{label}: beat counts differ from {what} at songs {bad}")
+    col_err = np.abs(out[:, 1:] - ref[:, 1:]).max(axis=0)
+    if not (col_err <= 1e-3).all():
+        raise AssertionError(f"{label}: amplitude/frequency/attack differ from {what}: {col_err}")
+    return col_err
 
 
 def main() -> int:
@@ -182,8 +265,12 @@ def main() -> int:
     from bliss_tpu_torch import AnalysisConfig, api
     from bliss_tpu_torch.features.analyze import analyze_batch
     from bliss_tpu_torch.features.types import PCMBatch
+    from bliss_tpu_torch.features.analyze import _device_stage_packed, _unpack_stage
+    from bliss_tpu_torch.features.tempo import envelope_finish_host
     from bliss_tpu_torch.kernels import _build
     from bliss_tpu_torch.kernels import fused_all as fa
+    from bliss_tpu_torch.kernels import fused_stats as fs
+    from bliss_tpu_torch.kernels import stft
     from bliss_tpu_torch.sim.distance import distance_matrix
 
     # 1. the card
@@ -195,8 +282,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load("fused_all")
-    fa._library()
+    _build.fused_all_library()
     secs, report = _build.BUILD_INFO.get("fused_all", (0.0, "already built"))
     ptxas = " | ".join(
         ln.split("ptxas info    : ")[-1] for ln in report.splitlines()
@@ -208,7 +294,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     edge_arrays, edge_durs = edge_batch(rng)
     edge = PCMBatch.from_arrays(edge_arrays, edge_durs, device="cuda")
-    kernel_vs_plain(fa, edge, "(a) B=4 L=2^18 edge cases", timed=False)
+    check_kernels(edge, "(a) B=4 L=2^18 edge cases", timed=False, edge=True)
 
     t0 = time.perf_counter()
     arrays, durations = main_batch(rng)
@@ -217,18 +303,18 @@ def main() -> int:
     batch = PCMBatch.from_arrays(arrays, durations, device="cuda")
     if tuple(batch.samples.shape) != (MAIN_B, MAIN_L):
         raise AssertionError(f"main batch shape {tuple(batch.samples.shape)}")
-    errs, ms, plain_ms = kernel_vs_plain(
-        fa, batch, "(b) B=64 L=2^23", timed=True
-    )
-    log(f"fused_all B=64 L=2^23 warm median of 5: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms {label}")
+    kernels = check_kernels(batch, "(b) B=64 L=2^23", timed=True, edge=False)
+    for name, (_, ms, plain_ms) in kernels.items():
+        log(f"{name} B=64 L=2^23 warm median of 5: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms {label}")
 
-    # 4. the main path, through the user's entry point
+    # 4. the main path, through the user's entry point; every count is set
+    # to 0 just before each path runs and read just after
     cfg = api.default_config()
     if cfg != AnalysisConfig.for_gpu():
         raise AssertionError(f"default_config() is not for_gpu(): {cfg}")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fs.LAUNCHES = stft.LAUNCHES = 0
     t0 = time.perf_counter()
     out = api.analyze_pcm(arrays, durations, device="cuda")
     cold_s = time.perf_counter() - t0
@@ -237,36 +323,100 @@ def main() -> int:
         t0 = time.perf_counter()
         out = api.analyze_pcm(arrays, durations, device="cuda")
         runs.append(time.perf_counter() - t0)
-    launches = fa.LAUNCHES
+    launches = {"fused_all": fa.LAUNCHES}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if launches < 1:
-        raise AssertionError("the main path did not launch the fused_all kernel")
+    if fa.LAUNCHES < 1 or fs.LAUNCHES or stft.LAUNCHES:
+        raise AssertionError(
+            f"the main path launched fused_all {fa.LAUNCHES}, fused_stats "
+            f"{fs.LAUNCHES}, stft_power {stft.LAUNCHES} times; want K1 only"
+        )
     if out.shape != (MAIN_B, 4) or not np.isfinite(out).all():
         raise AssertionError(f"main path output not finite [64, 4]: {out}")
     warm = statistics.median(runs)
     log(f"main path analyze_pcm B=64 L=2^23: first {cold_s:.3f} s, warm median "
         f"of 3 {warm:.3f} s = {MAIN_B / warm:.1f} songs/s (host padding and "
         f"copy included), peak device memory {peak_gib:.2f} GiB, kernel "
-        f"launches {launches} {label}")
+        f"launches {fa.LAUNCHES} {label}")
     device_ms = cuda_ms(lambda: analyze_batch(batch, cfg), reps=3)
     log(f"main path analyze_batch on the card-resident batch: warm median of 3 "
         f"{device_ms:.1f} ms = {MAIN_B / device_ms * 1e3:.1f} songs/s {label}")
 
     with mock.patch.object(fa, "fused_all_call", fa.fused_all_reference):
         ref = analyze_batch(batch, cfg).cpu().numpy()
-    dur = np.asarray(durations, np.float64)
-    beats = np.rint((out[:, 0].astype(np.float64) + 30.4) * dur / 4.0)
-    if not np.array_equal(out[:, 0], ref[:, 0]):
-        bad = np.nonzero(out[:, 0] != ref[:, 0])[0]
-        raise AssertionError(f"beat counts differ from the plain path at songs {bad}")
-    col_err = np.abs(out[:, 1:] - ref[:, 1:]).max(axis=0)
-    if not (col_err <= 1e-3).all():
-        raise AssertionError(f"amplitude/frequency/attack differ: {col_err}")
+    beats = beat_counts(out, durations)
+    col_err = same_scores("main path", out, ref, "the plain-kernel path")
     log(f"main path vs plain-kernel path: beat counts identical "
         f"({int(beats.min())}..{int(beats.max())} per song), max |diff| "
         f"amplitude {col_err[0]:.2e} frequency {col_err[1]:.2e} attack {col_err[2]:.2e}")
 
-    # 5. similarity
+    # 5. the two-kernel and hybrid paths
+    plain_k2_k3 = (
+        mock.patch.object(fs, "fused_stats_call", fs.fused_stats_reference),
+        mock.patch.object(stft, "stft_power", stft.stft_power_reference),
+    )
+    two = AnalysisConfig(**{**dataclasses.asdict(cfg), "single_pass": False})
+    fa.LAUNCHES = fs.LAUNCHES = stft.LAUNCHES = 0
+    out2 = analyze_batch(batch, two).cpu().numpy()
+    launches["fused_stats"], launches["stft_power"] = fs.LAUNCHES, stft.LAUNCHES
+    if fa.LAUNCHES or fs.LAUNCHES < 1 or stft.LAUNCHES < 1:
+        raise AssertionError(
+            f"the two-kernel path launched fused_all {fa.LAUNCHES}, fused_stats "
+            f"{fs.LAUNCHES}, stft_power {stft.LAUNCHES} times; want K2 and K3 only"
+        )
+    with plain_k2_k3[0], plain_k2_k3[1]:
+        ref2 = analyze_batch(batch, two).cpu().numpy()
+    same_scores("two-kernel path", out2, out, "the main path")
+    col_err = same_scores("two-kernel path", out2, ref2, "its plain-kernel run")
+    two_ms = cuda_ms(lambda: analyze_batch(batch, two), reps=3)
+    log(f"two-kernel path analyze_batch B=64 L=2^23: launches fused_stats "
+        f"{launches['fused_stats']} stft_power {launches['stft_power']}; beat counts "
+        f"identical to the main path and its plain-kernel run, max |diff| vs plain "
+        f"{col_err.max():.2e}; card-resident warm median of 3 {two_ms:.1f} ms = "
+        f"{MAIN_B / two_ms * 1e3:.1f} songs/s {label}")
+
+    hyb = AnalysisConfig.for_gpu_hybrid()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fs.LAUNCHES = stft.LAUNCHES = 0
+    outh = api.analyze_pcm(arrays, durations, cfg=hyb, device="cuda")
+    hyb_launches = (fa.LAUNCHES, fs.LAUNCHES, stft.LAUNCHES)
+    hyb_peak = torch.cuda.max_memory_allocated() / 2**30
+    if hyb_launches[0] or hyb_launches[1] < 1 or hyb_launches[2] < 1:
+        raise AssertionError(f"the hybrid path launched (K1, K2, K3) {hyb_launches} times")
+    with plain_k2_k3[0], plain_k2_k3[1]:
+        refh = api.analyze_features(batch, hyb)
+    same_scores("hybrid path", outh, out, "the main path")
+    col_err = same_scores("hybrid path", outh, refh, "its plain-kernel run")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        api.analyze_pcm(arrays, durations, cfg=hyb, device="cuda")
+        runs.append(time.perf_counter() - t0)
+    stage_s, copy_s, finish_s = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        packed = _device_stage_packed(batch, hyb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = packed.cpu().numpy()
+        t2 = time.perf_counter()
+        amp_h, freq_h, fa_h = _unpack_stage(host, hyb, MAIN_L)
+        envelope_finish_host(fa_h, batch.n_samples.cpu().numpy(), batch.durations.cpu().numpy())
+        t3 = time.perf_counter()
+        stage_s.append(t1 - t0)
+        copy_s.append(t2 - t1)
+        finish_s.append(t3 - t2)
+    warm_h = statistics.median(runs)
+    log(f"hybrid path analyze_pcm B=64 L=2^23: launches (K1, K2, K3) {hyb_launches}; "
+        f"beat counts identical to the main path and its plain-kernel run, max "
+        f"|diff| vs plain {col_err.max():.2e}; warm median of 3 {warm_h:.3f} s = "
+        f"{MAIN_B / warm_h:.1f} songs/s (host padding and copy included); "
+        f"card-resident stages, median of 3: device stage "
+        f"{statistics.median(stage_s) * 1e3:.1f} ms, copy back of "
+        f"{host.nbytes / 2**20:.1f} MiB {statistics.median(copy_s) * 1e3:.1f} ms, "
+        f"float64 host finish {statistics.median(finish_s):.3f} s on "
+        f"{os.cpu_count()} host cores; peak device memory {hyb_peak:.2f} GiB {label}")
+
+    # 6. similarity
     vecs = torch.from_numpy(out).cuda()
     dm = distance_matrix(vecs).cpu().numpy().astype(np.float64)
     v = out.astype(np.float64)
@@ -277,17 +427,22 @@ def main() -> int:
         raise AssertionError(f"distance_matrix max err {dm_err}")
     log(f"distance_matrix 64x64 vs numpy float64: max abs err {dm_err:.2e}")
 
+    replaces = {
+        "fused_all": "bliss_tpu/kernels/fused_all.py:52",
+        "fused_stats": "bliss_tpu/kernels/fused_stats.py:71",
+        "stft_power": "bliss_tpu/kernels/pallas_stft.py:75",
+    }
     log(json.dumps({"kernels": [{
-        "name": "fused_all",
+        "name": name,
         "route": "cuda",
         "source": "bliss_tpu_torch/kernels/csrc/fused_all.cu",
-        "replaces": "bliss_tpu/kernels/fused_all.py:52",
-        "launches": launches,
+        "replaces": replaces[name],
+        "launches": launches[name],
         "max_abs_err": max(a for a, _ in errs.values()),
         "errors": {k: {"max_abs": a, "max_rel": r} for k, (a, r) in errs.items()},
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+    } for name, (errs, ms, plain_ms) in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

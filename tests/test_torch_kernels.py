@@ -21,6 +21,7 @@ from bliss_tpu_torch.dsp.intops import c_div, wrapping_sum_int32
 from bliss_tpu_torch.features.analyze import _mask_energies
 from bliss_tpu_torch.features.types import PCMBatch
 from bliss_tpu_torch.kernels import fused_all
+from bliss_tpu_torch.kernels import fused_stats
 from bliss_tpu_torch.kernels.fused_stats import trim_bounds_from_rownz
 from bliss_tpu_torch.kernels.stft import frequency_scores_from_power
 
@@ -81,7 +82,7 @@ def port():
     arrays, durs = _arrays()
     tb = PCMBatch.from_arrays(arrays, durs, device="cpu")
     amp, energies, power = fused_all.fused_all_stats(tb.samples, tb.n_samples)
-    _, _, mean = fused_all.normalization(tb.samples, tb.n_samples)
+    _, _, mean = fused_stats.normalization(tb.samples, tb.n_samples)
     return {"batch": tb, "amp": amp, "energies": energies, "power": power, "mean": mean}
 
 
@@ -100,7 +101,7 @@ def test_mean_wraps_like_c_int():
         jnp.sum(jnp.where(valid, jnp.asarray(s).astype(jnp.int32), 0), axis=1, dtype=jnp.int32),
         jnp.asarray(n),
     )
-    _, _, mean = fused_all.normalization(torch.from_numpy(s), torch.from_numpy(n))
+    _, _, mean = fused_stats.normalization(torch.from_numpy(s), torch.from_numpy(n))
     assert np.array_equal(mean.numpy(), np.asarray(j))
     assert int(np.asarray(j)[0]) != 32767  # the sum really wrapped
 
@@ -211,9 +212,51 @@ def test_multiband_energies_match_jax():
     assert rel.max() < 1e-4
 
 
+@pytest.mark.parametrize("halo", ["mean", "shard"])
+def test_halo0_matches_jax(halo):
+    """halo0, the raw history before sample 0, against JAX's
+    fused_all_call(..., halo0=...): as the mesh passes it, the clipped
+    integer mean to the first shard and the previous shard's last K samples
+    to the next (parallel/mesh.py:289-298). rownz identical, wsum within
+    2e-4, masked energies within 1e-4 relative, power within 1e-5 of each
+    song's peak bin."""
+    from bliss_tpu.kernels.fused_all import fused_all_call as j_fused_all_call
+
+    arrays, durs = _arrays()
+    jb = JBatch.from_arrays(arrays, durs)
+    tb = PCMBatch.from_arrays(arrays, durs, device="cpu")
+    alpha, beta, mean = fused_stats.normalization(tb.samples, tb.n_samples)
+    B = len(arrays)
+    if halo == "mean":
+        halo0 = mean.clamp(-32768, 32767).to(torch.int16)[:, None].expand(B, 16).contiguous()
+    else:
+        S = 16 * 1024
+        halo0 = tb.samples[:, S - 16 : S].contiguous()
+        jb = JBatch(jb.samples[:, S:], jb.n_samples - S, jb.durations)
+        tb = PCMBatch(tb.samples[:, S:].contiguous(), tb.n_samples - S, tb.durations)
+    nf = ((tb.n_samples // 2) // 512).to(torch.int32)
+    wsum_r, rownz_r, e_ref, p_ref = j_fused_all_call(
+        jb.samples, jnp.asarray(alpha.numpy()), jnp.asarray(beta.numpy()),
+        jnp.asarray(nf.numpy()), halo0=jnp.asarray(halo0.numpy()), interpret=True,
+    )
+    wsum, rownz, energies, power = fused_all.fused_all_call(
+        tb.samples, alpha, beta, nf, halo0
+    )
+    nbf = tb.samples.shape[1] // 256
+    assert np.array_equal(rownz.numpy(), np.asarray(rownz_r)[:, :nbf])
+    np.testing.assert_allclose(wsum.numpy(), np.asarray(wsum_r)[:, :nbf], rtol=0, atol=2e-4)
+    e_ref = np.asarray(j_mask_energies(jb, e_ref, JCFG))
+    e_port = _mask_energies(tb, energies).numpy()
+    assert e_ref.shape == e_port.shape
+    assert (np.abs(e_port - e_ref) / (np.abs(e_ref) + 1e-3)).max() < 1e-4
+    p_ref = np.asarray(p_ref, np.float64)
+    peak = p_ref.max(axis=1, keepdims=True)
+    assert (np.abs(power.numpy() - p_ref) / peak).max() < 1e-5
+
+
 def test_cpu_call_is_the_plain_version(port):
     tb = port["batch"]
-    alpha, beta, _ = fused_all.normalization(tb.samples, tb.n_samples)
+    alpha, beta, _ = fused_stats.normalization(tb.samples, tb.n_samples)
     nf = (tb.n_samples // 1024).to(torch.int32)
     before = fused_all.LAUNCHES
     a = fused_all.fused_all_call(tb.samples, alpha, beta, nf)

@@ -1,6 +1,7 @@
 """The port runs where JAX is absent, as on the GPU machines: a fresh
 interpreter in which ``jax``, ``ml_dtypes`` and ``bliss_tpu`` cannot be
-imported runs ``analyze_pcm`` on the CPU."""
+imported runs ``analyze_pcm`` on the CPU, under the main path's config and
+the hybrid config (two kernels, then the NumPy/SciPy host finish)."""
 
 import os
 import subprocess
@@ -22,6 +23,12 @@ t = np.arange(30_000)
 song = (8000 * np.sin(2 * np.pi * t / 40.0) + 500 * rng.randn(t.size)).astype(np.int16)
 out = bliss_tpu_torch.analyze_pcm([song, song[:25_000]], [1, 1], device="cpu")
 assert out.shape == (2, 4) and np.isfinite(out).all(), out
+hybrid = bliss_tpu_torch.analyze_pcm(
+    [song, song[:25_000]], [1, 1], cfg=bliss_tpu_torch.AnalysisConfig.for_gpu_hybrid(),
+    device="cpu",
+)
+assert np.array_equal(hybrid[:, 0], out[:, 0]), (hybrid, out)
+assert np.abs(hybrid[:, 1:] - out[:, 1:]).max() <= 1e-3, (hybrid, out)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())

@@ -81,7 +81,13 @@ def test_analyze_pcm_entry_point(results):
 
 @pytest.mark.parametrize(
     "jcfg",
-    [JConfig(), JConfig.for_parity(), JConfig.for_tpu_hybrid()],
+    [
+        JConfig(),
+        JConfig.for_parity(),
+        # the hybrid's two kernels with the working-dtype device finish (M7);
+        # for_tpu_hybrid() itself runs (tests/test_torch_two_kernel.py)
+        dataclasses.replace(JConfig.for_tpu_hybrid(), tempo_finish="device"),
+    ],
     ids=["default", "parity", "hybrid"],
 )
 def test_unported_configs_raise(jcfg):

@@ -92,6 +92,10 @@ PRESETS = {
     "for_tpu": JConfig.for_tpu,
     "for_parity": JConfig.for_parity,
     "for_tpu_hybrid": JConfig.for_tpu_hybrid,
+    # the hybrid's two kernels with the working-dtype device finish (M7)
+    "hybrid_device_finish": lambda: dataclasses.replace(
+        JConfig.for_tpu_hybrid(), tempo_finish="device"
+    ),
     "reference5": lambda: JConfig(
         fused_kernel=True, single_pass=True, filterbank="reference5",
         tempo_finish="device_exact",
@@ -109,6 +113,12 @@ def test_config_from_reference_roundtrip(preset):
     port = _port(preset)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port == AnalysisConfig(**dataclasses.asdict(ref))
+
+
+def test_for_gpu_hybrid_is_for_tpu_hybrid():
+    assert config_from_reference(dataclasses.asdict(JConfig.for_tpu_hybrid())) == (
+        AnalysisConfig.for_gpu_hybrid()
+    )
 
 
 def test_for_gpu_is_for_tpu():
@@ -145,15 +155,19 @@ def test_config_validation_matches(kwargs):
 
 @pytest.mark.parametrize(
     "preset,item",
-    [("default", "M7"), ("for_parity", "M7"), ("for_tpu_hybrid", "M9")],
+    [("default", "M7"), ("for_parity", "M7"), ("hybrid_device_finish", "M7")],
 )
 def test_unported_configs_name_their_roadmap_item(preset, item):
     with pytest.raises(NotImplementedError, match=item):
         check_supported(_port(preset))
     check_supported(AnalysisConfig.for_gpu())
     check_supported(_port("reference5"))
-    with pytest.raises(NotImplementedError, match="M9"):
-        check_supported(AnalysisConfig(fused_kernel=True, tempo_finish="device_exact"))
+    # the two-kernel and hybrid configs run; the XLA-path modes do not
+    check_supported(_port("for_tpu_hybrid"))
+    check_supported(AnalysisConfig(fused_kernel=True, tempo_finish="device_exact"))
+    check_supported(AnalysisConfig(fused_kernel=True, fused_conv="exact", tempo_finish="host"))
+    with pytest.raises(NotImplementedError, match="M7"):
+        check_supported(AnalysisConfig(fused_kernel=False, tempo_finish="device_exact"))
 
 
 def test_tables_from_numpy_takes_the_reference_tables():
