@@ -55,11 +55,13 @@ def analyze_pcm(
     durations: list[int],
     *,
     cfg: AnalysisConfig | None = None,
-    device,
+    device="cuda",
 ) -> np.ndarray:
     """[B, 4] float32 force vectors (tempo, amplitude, frequency, attack) of
     1-D int16 interleaved-stereo PCM arrays at 22.05 kHz, with each song's
-    duration in whole seconds, analyzed on ``device``."""
+    duration in whole seconds, analyzed on ``device``: the GPU unless the
+    caller asks for the CPU (``device="cpu"``); raises RuntimeError when no
+    GPU is present."""
     cfg = cfg or default_config()
     batch = PCMBatch.from_arrays(
         arrays, durations, pad_multiple=cfg.pad_multiple, device=device

@@ -8,6 +8,18 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; raises RuntimeError for a CUDA device
+    when none is present, rather than running anywhere else."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for device={device!r}: the port runs on the GPU "
+            "unless the caller passes device='cpu'"
+        )
+    return dev
+
+
 class PCMBatch(NamedTuple):
     """A zero-padded batch of canonical PCM songs.
 
@@ -28,10 +40,12 @@ class PCMBatch(NamedTuple):
         durations: list[int],
         pad_multiple: int = 1024,
         *,
-        device,
+        device="cuda",
     ) -> "PCMBatch":
         """Pad a list of 1-D int16 PCM arrays to a common length and place
-        the batch on ``device``."""
+        the batch on ``device``: the GPU unless the caller asks for the CPU
+        (``device="cpu"``); raises RuntimeError when no GPU is present."""
+        device = resolve_device(device)
         n = [int(a.shape[0]) for a in arrays]
         L = max(n)
         L = ((L + pad_multiple - 1) // pad_multiple) * pad_multiple

@@ -6,9 +6,11 @@ and is loaded with ``ctypes``. The hash covers every file under ``csrc/``
 and the compiler flags, so an edited source rebuilds. Nothing is built when
 a module is imported, and a missing ``nvcc`` or a failed build raises.
 
-``fused_all_library`` binds the entry points of ``csrc/fused_all.cu``,
-which the wrappers of K1, K2 and K3 share, and ``launch`` calls one of them
-on the tensor's current stream and raises if the launch failed.
+``library(name)`` binds the entry points of ``csrc/<name>.cu``:
+``fused_all`` (K1, K2 and K3) and ``ablate`` (the measurement kernels A1,
+A2 and A3 of ``bliss_tpu_torch.ablate``). ``launch`` calls one entry point
+on the tensor's current stream and raises if the launch failed. Two
+libraries may build at once, from two threads.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent compiling, compiler's stderr: ptxas register and
 # spill report); absent when the library was already on disk
@@ -68,6 +71,8 @@ def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, building it first
     if the current sources have not been built yet."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -93,38 +98,46 @@ def load(name: str) -> ctypes.CDLL:
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of csrc/fused_all.cu's entry points (see its extern "C" block)
 _STATS = [_VP, _I, _I, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP, _I, _I, _VP, _VP, _VP]
 _POWER = [_VP, _I, _I, _VP, _VP, _VP, _VP, _I]
+# argtypes of each library's entry points (see the extern "C" block of
+# csrc/<name>.cu); each also takes the stream last and returns a cudaError_t
 _SIGNATURES = {
-    "bliss_fused_stats": _STATS + [_VP],
-    "bliss_stft_power": _POWER + [_VP],
-    "bliss_fused_all": _STATS + [_VP, _VP, _VP, _I, _VP],
-    "bliss_power_tile": [],
+    "fused_all": {
+        "bliss_fused_stats": _STATS + [_VP],
+        "bliss_stft_power": _POWER + [_VP],
+        "bliss_fused_all": _STATS + [_VP, _VP, _VP, _I, _VP],
+        "bliss_power_tile": [],
+    },
+    "ablate": {
+        "bliss_stats_ablate": [_I] + _STATS + [_VP],
+        "bliss_probe": [_I, _I, _VP, _I, _I, _I, _VP, _VP],
+        "bliss_matred_stats": [_VP, _I, _I, _VP, _VP, _VP, _I, _F, _VP, _VP, _I, _VP, _VP],
+    },
 }
-_bound: ctypes.CDLL | None = None
+_bound: dict[str, ctypes.CDLL] = {}
 
 
-def fused_all_library() -> ctypes.CDLL:
-    """``csrc/fused_all.cu``'s library with every entry point's argument
-    and return types declared."""
-    global _bound
-    if _bound is None:
-        lib = load("fused_all")
-        for fn, argtypes in _SIGNATURES.items():
+def library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library, built at first use, with every entry
+    point's argument and return types declared."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = load(name)
+        for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _I
         lib.bliss_cuda_error_string.argtypes = [_I]
         lib.bliss_cuda_error_string.restype = ctypes.c_char_p
-        _bound = lib
-    return _bound
+        _bound[name] = lib
+    return lib
 
 
-def launch(fn: str, device, *args) -> None:
-    """Calls entry point ``fn`` with ``args`` and the current stream of
-    CUDA ``device`` as its last argument; raises RuntimeError with CUDA's
-    message if the launch was refused."""
-    lib = fused_all_library()
+def launch(name: str, fn: str, device, *args) -> None:
+    """Calls entry point ``fn`` of library ``name`` with ``args`` and the
+    current stream of CUDA ``device`` as its last argument; raises
+    RuntimeError with CUDA's message if the launch was refused."""
+    lib = library(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)

@@ -65,7 +65,7 @@ def fused_all_call(
     part, ntiles = stft.power_scratch(samples)
     n_frames = n_frames.contiguous()
     _build.launch(
-        "bliss_fused_all", samples.device, *args, n_frames.data_ptr(),
+        "fused_all", "bliss_fused_all", samples.device, *args, n_frames.data_ptr(),
         tabs["dft"].data_ptr(), part.data_ptr(), ntiles,
     )
     LAUNCHES += 1

@@ -15,11 +15,12 @@ NBF = L // 256 and NW = NBF - 1. The JAX kernel pads L to a multiple of its
 245760-sample chunk, so its outputs are longer before masking. The energies
 are float64 (the JAX kernel's are float32) because the tempo peak detector
 downstream resolves ~1e-10 relative changes of them on noisy music (see
-``csrc/fused_all.cu``).
+``csrc/fused_all.cu``'s header).
 
-On a CUDA tensor it launches ``stats_kernel`` of ``csrc/fused_all.cu``; on a
-CPU tensor it runs ``fused_stats_reference``, the plain PyTorch version of
-the same function. This module also holds what the two-kernel and
+On a CUDA tensor it launches ``stats_kernel`` (``csrc/stats.cuh``) through
+K2's entry point in ``csrc/fused_all.cu``; on a CPU tensor it runs
+``fused_stats_reference``, the plain PyTorch version of the same function.
+This module also holds what the two-kernel and
 single-pass paths share around it: the normalization prepass, the trim
 bounds and the amplitude integral.
 """
@@ -95,8 +96,10 @@ def check_conv_mode(conv_mode: str) -> None:
 
 def stats_launch_args(samples, alpha, beta, halo0, tabs, nb_bands, band_taps):
     """(args, (wsum, rownz, stats)): the stats kernel's leading arguments,
-    shared by the entry points of K2 and K1 in ``csrc/fused_all.cu``, and
-    the outputs it writes, stats [B, NB, 9, NBF] float64."""
+    shared by the entry points of K2 and K1 in ``csrc/fused_all.cu`` and of
+    the stage ablation in ``csrc/ablate.cu``, and the outputs it writes,
+    stats [B, NB, 9, NBF] in the type of ``tabs["fir"]`` (float64 but for
+    the ablation's float32 FIR)."""
     if not samples.is_contiguous() or samples.data_ptr() % 16:
         raise ValueError("samples must be contiguous and 16-byte aligned")
     alpha, beta = alpha.contiguous(), beta.contiguous()
@@ -107,7 +110,7 @@ def stats_launch_args(samples, alpha, beta, halo0, tabs, nb_bands, band_taps):
     halfwidth, _, _ = tables.amplitude_cdf_poly()
     wsum = torch.empty(B, NBF, dtype=torch.float32, device=dev)
     rownz = torch.empty(B, NBF, dtype=torch.float32, device=dev)
-    stats = torch.empty(B, nb_bands, NSTAT, NBF, dtype=torch.float64, device=dev)
+    stats = torch.empty(B, nb_bands, NSTAT, NBF, dtype=tabs["fir"].dtype, device=dev)
     args = [
         samples.data_ptr(), B, L, alpha.data_ptr(), beta.data_ptr(),
         None if halo0 is None else halo0.data_ptr(), tabs["cheb"].data_ptr(),
@@ -152,7 +155,7 @@ def fused_stats_call(
     args, (wsum, rownz, stats) = stats_launch_args(
         samples, alpha, beta, halo0, tabs, nb_bands, band_taps
     )
-    _build.launch("bliss_fused_stats", samples.device, *args)
+    _build.launch("fused_all", "bliss_fused_stats", samples.device, *args)
     LAUNCHES += 1
     return wsum, rownz, assemble_energies(stats)
 
@@ -180,47 +183,87 @@ def fused_stats_reference(
 
 
 def block_stats_reference(
-    samples, alpha, beta, halo0=None, *, nb_bands, band_taps, filterbank
+    samples, alpha, beta, halo0=None, *, nb_bands, band_taps, filterbank,
+    cheb=True, conv=True, warm=True, fir_dtype=torch.float64,
 ):
     """What the stats kernel writes, in plain PyTorch: (wsum [B, NBF],
-    rownz [B, NBF], stats [B, NB, 9, NBF] float64). The FIR runs as
-    ``band_taps`` shifted adds and the warm-up correction as an einsum."""
+    rownz [B, NBF], stats [B, NB, 9, NBF] in ``fir_dtype``). The FIR runs
+    as ``band_taps`` shifted adds and the warm-up correction as an einsum.
+
+    The switches are the stages of ``bliss_tpu_torch.ablate.fused``'s
+    ablation, all on for the shipped kernel: ``cheb=False`` sums the raw
+    samples as the amplitude weights, ``conv=False`` takes the normalized
+    signal as the FIR's output, ``warm=False`` drops the window-reset
+    correction (the reset piece equals the head), and ``fir_dtype`` is the
+    type of the FIR, the correction and their sums."""
     tabs = device_tables(nb_bands, band_taps, filterbank, samples.device)
     B, L = samples.shape
     NBF = L // BLK
     K = band_taps - 1
     x = samples.to(torch.float32)
 
-    halfwidth, _, _ = tables.amplitude_cdf_poly()
-    w = cheb_T(1000.0 - torch.abs(x + 1.0), tabs["cheb"], float(halfwidth))
+    if cheb:
+        halfwidth, _, _ = tables.amplitude_cdf_poly()
+        w = cheb_T(1000.0 - torch.abs(x + 1.0), tabs["cheb"], float(halfwidth))
+    else:
+        w = x
     wsum = w.reshape(B, NBF, BLK).sum(dim=-1)
     rownz = (samples != 0).reshape(B, NBF, BLK).any(dim=-1).to(torch.float32)
-    del w
+    del w, x
 
-    a, be = alpha.double()[:, None], beta.double()[:, None]
-    if halo0 is None:
-        hist0 = torch.zeros(B, K, dtype=torch.float64, device=samples.device)
-    else:
-        hist0 = a * halo0.double() + be
-    xp = torch.cat([hist0, a * x.double() + be], dim=1)  # [B, K + L]
-    del x
-    fir = tabs["fir"]
-    alt = torch.as_tensor(tables.parseval_alt_sign()[:BLK], device=samples.device)
-    hist = xp[:, :L].reshape(B, NBF, BLK)[:, :, :K]
-    delta = torch.einsum("bwk,njk->bnwj", hist, tabs["warm"])
-    stats = torch.empty(B, nb_bands, NSTAT, NBF, dtype=torch.float64, device=samples.device)
+    xp = normalized_history(samples, alpha, beta, halo0, K, fir_dtype)
+    alt = torch.as_tensor(
+        tables.parseval_alt_sign()[:BLK], dtype=fir_dtype, device=samples.device
+    )
+    stats = torch.empty(B, nb_bands, NSTAT, NBF, dtype=fir_dtype, device=samples.device)
     for band in range(nb_bands):
-        z = torch.zeros(B, L, dtype=torch.float64, device=samples.device)
-        for m in range(band_taps):
-            z = z + fir[band, m] * xp[:, K - m : K - m + L]
-        zb = z.reshape(B, NBF, BLK)
-        pieces = (zb[..., K:], zb[..., :K], zb[..., :K] + delta[:, band])
+        z, delta = fir_pieces(
+            xp, tabs["fir"][band].to(fir_dtype), tabs["warm"][band].to(fir_dtype),
+            conv=conv, warm=warm,
+        )
+        pieces = (z[..., K:], z[..., :K], z[..., :K] + delta)
         for p, (v, sign) in enumerate(zip(pieces, (alt[K:], alt[:K], alt[:K]))):
             stats[:, band, 3 * p] = v.sum(dim=-1)
             stats[:, band, 3 * p + 1] = (v * v).sum(dim=-1)
             stats[:, band, 3 * p + 2] = (v * sign).sum(dim=-1)
-        del z, zb, pieces
+        del z, delta, pieces
     return wsum, rownz, stats
+
+
+def normalized_history(samples, alpha, beta, halo0, K, dtype):
+    """[B, K + L]: the K history samples before sample 0 (``alpha*halo0 +
+    beta``, or normalized zero without ``halo0``), then the normalized
+    signal ``alpha*s + beta``, in ``dtype``."""
+    B = samples.shape[0]
+    a, be = alpha.to(dtype)[:, None], beta.to(dtype)[:, None]
+    if halo0 is None:
+        hist0 = torch.zeros(B, K, dtype=dtype, device=samples.device)
+    else:
+        hist0 = a * halo0.to(dtype) + be
+    return torch.cat([hist0, a * samples.to(dtype) + be], dim=1)
+
+
+def fir_pieces(xp, fir, warm_mat, *, conv=True, warm=True):
+    """(z [B, NBF, 256], delta [B, NBF, K]) of one band from ``xp`` =
+    ``normalized_history(...)`` [B, K + L]: the causal FIR z (taps ``fir``
+    [K + 1]; ``conv=False``: the signal itself) and each block's window-reset
+    correction delta = M h over its first K samples (``warm_mat`` [K, K], h
+    the K samples before the block; ``warm=False``: zero)."""
+    K = fir.shape[0] - 1
+    B, L = xp.shape[0], xp.shape[1] - K
+    NBF = L // BLK
+    if conv:
+        z = torch.zeros(B, L, dtype=xp.dtype, device=xp.device)
+        for m in range(K + 1):
+            z = z + fir[m] * xp[:, K - m : K - m + L]
+    else:
+        z = xp[:, K:].clone()
+    hist = xp[:, :L].reshape(B, NBF, BLK)[:, :, :K]
+    if warm:
+        delta = torch.einsum("bwk,jk->bwj", hist, warm_mat)
+    else:
+        delta = torch.zeros_like(hist)
+    return z.reshape(B, NBF, BLK), delta
 
 
 def assemble_energies(stats: torch.Tensor) -> torch.Tensor:

@@ -77,7 +77,7 @@ def power_scratch(samples: torch.Tensor):
     if not samples.is_contiguous() or samples.data_ptr() % 16:
         raise ValueError("samples must be contiguous and 16-byte aligned")
     B, L = samples.shape
-    tile = _build.fused_all_library().bliss_power_tile()
+    tile = _build.library("fused_all").bliss_power_tile()
     ntiles = -(-(L // FRAME) // tile)
     part = torch.empty(B, ntiles, C.WINDOW_SIZE, dtype=torch.float32, device=samples.device)
     return part, ntiles
@@ -127,7 +127,7 @@ def stft_power(
     n_frames = n_frames.contiguous()
     offset = None if frame_offset is None else frame_offset.contiguous()
     _build.launch(
-        "bliss_stft_power", samples.device, samples.data_ptr(), B, L,
+        "fused_all", "bliss_stft_power", samples.device, samples.data_ptr(), B, L,
         n_frames.data_ptr(), None if offset is None else offset.data_ptr(),
         dft.data_ptr(), part.data_ptr(), ntiles,
     )

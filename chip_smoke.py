@@ -6,9 +6,10 @@
 Phases, one line each, stopping at the first failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: compiles ``bliss_tpu_torch/kernels/csrc/fused_all.cu`` (the one
-   source of the three kernels) for sm_90a from the checkout and prints
-   the build time and ptxas report;
+2. build: compiles ``bliss_tpu_torch/kernels/csrc/fused_all.cu`` (K1, K2,
+   K3) and ``csrc/ablate.cu`` (the measurement kernels A1, A2, A3) for
+   sm_90a from the checkout, one ``nvcc`` each, started together, and
+   prints each build's time and each kernel's ptxas registers and spills;
 3. kernel vs plain, each kernel's wrapper against its plain version on the
    same card tensors, (a) on a B=4, L=2^18 batch of edge cases and (b) on
    the main-path batch B=64, L=2^23, with the warm median of 5 timings of
@@ -24,7 +25,16 @@ Phases, one line each, stopping at the first failure:
    K2, K3, then the float64 host finish) through ``api.analyze_pcm``; each
    counts the same beats as the main path and as itself with the plain
    versions in place of the kernels;
-6. ``distance_matrix`` of the 64 force vectors against NumPy.
+6. ``distance_matrix`` of the 64 force vectors against NumPy;
+7. the ablation (``bliss_tpu_torch.ablate``): every variant of A1 (the
+   stats kernel's stages), A2 (the read-and-reduce probes) and A3 (the
+   matrix-product reductions) against its plain version on the edge batch,
+   at the TPU scripts' shape B=128, L=491520 and at B=64, L=2^23, where the
+   plain versions and, for the row sums, ``torch.sum`` of the same rows
+   are timed too; A3's numerics report against the shipped stats kernel;
+   then the ablation's own path,
+   ``bliss_tpu_torch.ablate``'s ``run`` at both shapes, which times every
+   variant and must launch each of A1, A2 and A3.
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -35,12 +45,15 @@ and prints no result. Needs one card.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -235,6 +248,121 @@ def check_kernels(batch, label, timed: bool, edge: bool):
     return out
 
 
+def ptxas_report(stderr: str) -> str:
+    """Each kernel's registers and spills from nvcc's ``-Xptxas -v``
+    output, kernel names demangled where ``c++filt`` is present."""
+    entries, cur, spill = [], None, ""
+    for ln in stderr.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and cur:
+            entries.append((cur, ln.split("Used ")[1].split(",")[0], spill))
+            cur = None
+    names = [e[0] for e in entries]
+    if shutil.which("c++filt") and names:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60)
+        if out.returncode == 0:
+            names = out.stdout.splitlines()
+    return " | ".join(
+        f"{n.replace('(anonymous namespace)::', '').split('(')[0]}: {regs}, {sp}"
+        for n, (_, regs, sp) in zip(names, entries)
+    )
+
+
+def k3_library_ms(batch) -> float:
+    """K3's GEMM as one PyTorch call: ``torch.matmul`` of the batch's mono
+    frames [B * L/1024, 512] by the [512, 512] Hann-folded DFT table, warm
+    median of 5 (a yardstick the port never calls)."""
+    from bliss_tpu_torch.convert import device_tables
+    from bliss_tpu_torch.dsp.intops import c_div
+
+    x = batch.samples
+    B, L = x.shape
+    pairs = x.reshape(B, L // 1024, 512, 2).to(torch.int32)
+    mono = c_div(pairs[..., 0] + pairs[..., 1], 2).to(torch.float32).reshape(-1, 512)
+    del pairs
+    dft = device_tables(1, 17, "firwin", x.device)["dft"]
+    return cuda_ms(lambda: torch.matmul(mono, dft))
+
+
+def ablation_errors(case, got, ref):
+    """An ablation variant against its plain version. A1: rownz identical,
+    wsum within 1e-5 of |ref| + 1, rows s1..da within 1e-9 of the block's
+    sum of z^2 (+1) in float64 (1e-5 for the float32 FIR: FMA contraction
+    and summation order); A3: counts identical, wsum as A1, the columns of
+    z and delta within 1e-9 of the block's sum of z^2 (+1); A2: within 1e-6
+    of each output's sum of |term| (+1), exact where that sum is exact.
+    NaN (a silent song's infinite normalization) must sit at the same
+    places in both."""
+    name, kernel = case["name"], case["kernel"]
+    if kernel == "A2":
+        return {"out": compare(name, got, ref, case["scale"](), 1e-6)}
+    if kernel == "A1":  # rows (s1, s2, sa, d1, d2, da, wsum, rownz) on dim 2
+        got, ref = got.transpose(2, 3), ref.transpose(2, 3)
+        z2, tol = ref[..., 1:2], 1e-5 if "fir_fp32" in name else 1e-9
+    else:  # columns (sum z, sum alt z, sum z^2, d1, d2, da, wsum, count)
+        z2, tol = ref[..., 2:3], 1e-9
+    one = torch.ones_like(ref[..., 7])
+    return {
+        "flags": compare(f"{name} nonzero", got[..., 7], ref[..., 7], one, 0.0),
+        "wsum": compare(f"{name} wsum", got[..., 6], ref[..., 6], ref[..., 6].abs() + 1.0, 1e-5),
+        "stats": compare(f"{name} sums", got[..., :6], ref[..., :6], z2.abs() + 1.0, tol),
+    }
+
+
+# the ablation's row-sum probes -> the rows they sum; torch.sum of those
+# rows is the one PyTorch call that computes the same sums
+LIBRARY_ROWS = {"S1b one_sum": "x", "S1b sums_stack": "x", "S2 touch i16": "x",
+                "S2 touch i32": "x32", "S2 touch f32": "xf", "S3 i16": "x",
+                "S3 packed_nounpack": "words"}
+
+
+def check_ablation(inp, label, timed=False):
+    """Each ablation case at ``inp`` against its plain version; with
+    ``timed``, also the warm median of 5 of the plain version and, for the
+    row-sum probes, of ``torch.sum`` of the same rows. Returns {case name:
+    (errors, plain_ms, library_ms)}."""
+    ab = importlib.import_module("bliss_tpu_torch.ablate.__main__")
+    out = {}
+    for case in ab.cases(inp):
+        if case["plain"] is None:
+            continue
+        got = case["call"]()
+        torch.cuda.synchronize()
+        ref = case["plain"]()
+        torch.cuda.synchronize()
+        errs = ablation_errors(case, got, ref)
+        del got, ref
+        plain_ms = lib_ms = None
+        if timed:
+            plain_ms = cuda_ms(case["plain"])
+            if case["name"] in LIBRARY_ROWS:
+                rows = inp[LIBRARY_ROWS[case["name"]]].reshape(inp["B"], -1, 256)
+                lib_ms = cuda_ms(lambda: torch.sum(rows, dim=-1, dtype=torch.float32))
+        out[case["name"]] = (errs, plain_ms, lib_ms)
+        detail = ", ".join(f"{k} max_abs={a:.3e} max_rel={r:.3e}" for k, (a, r) in errs.items())
+        if timed:
+            detail += f"; plain {plain_ms:.3f} ms" + ("" if lib_ms is None else f", torch.sum {lib_ms:.3f} ms")
+        log(f"ablation vs plain {label} {case['name']}: {detail}")
+    return out
+
+
+def batch_inputs(batch) -> dict:
+    """``bliss_tpu_torch.ablate``'s inputs from a card-resident batch: one
+    chunk a song, alpha and beta from the prepass."""
+    from bliss_tpu_torch.ablate import packread
+    from bliss_tpu_torch.kernels import fused_stats as fs
+
+    x = batch.samples
+    alpha, beta, _ = fs.normalization(x, batch.n_samples)
+    return {"B": x.shape[0], "L": x.shape[1], "chunk": x.shape[1], "x": x,
+            "x32": x.to(torch.int32), "xf": x.to(torch.float32),
+            "words": packread.packed_words(x), "alpha": alpha, "beta": beta}
+
+
 def beat_counts(out, durations):
     dur = np.asarray(durations, np.float64)
     return np.rint((out[:, 0].astype(np.float64) + 30.4) * dur / 4.0)
@@ -267,7 +395,9 @@ def main() -> int:
     from bliss_tpu_torch.features.types import PCMBatch
     from bliss_tpu_torch.features.analyze import _device_stage_packed, _unpack_stage
     from bliss_tpu_torch.features.tempo import envelope_finish_host
-    from bliss_tpu_torch.kernels import _build
+    from bliss_tpu_torch.ablate import fused as ab_fused
+    from bliss_tpu_torch.ablate import matred, probe
+    from bliss_tpu_torch.kernels import _build, bounds
     from bliss_tpu_torch.kernels import fused_all as fa
     from bliss_tpu_torch.kernels import fused_stats as fs
     from bliss_tpu_torch.kernels import stft
@@ -280,15 +410,14 @@ def main() -> int:
     log(f"card: nvidia-smi {card!r}; torch {kind!r}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; python {sys.version.split()[0]}")
 
-    # 2. build
+    # 2. build, one nvcc for each source, started together
     t0 = time.perf_counter()
-    _build.fused_all_library()
-    secs, report = _build.BUILD_INFO.get("fused_all", (0.0, "already built"))
-    ptxas = " | ".join(
-        ln.split("ptxas info    : ")[-1] for ln in report.splitlines()
-        if "registers" in ln or "spill" in ln
-    )
-    log(f"build: fused_all.cu sm_90a in {secs:.1f} s (load {time.perf_counter() - t0:.1f} s); {ptxas}")
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.library, ("fused_all", "ablate")))
+    for name in ("fused_all", "ablate"):
+        secs, report = _build.BUILD_INFO.get(name, (0.0, "already built"))
+        log(f"build: {name}.cu sm_90a in {secs:.1f} s (both loaded after "
+            f"{time.perf_counter() - t0:.1f} s); {ptxas_report(report)}")
 
     # 3. kernel vs plain
     rng = np.random.default_rng(SEED)
@@ -304,9 +433,20 @@ def main() -> int:
     if tuple(batch.samples.shape) != (MAIN_B, MAIN_L):
         raise AssertionError(f"main batch shape {tuple(batch.samples.shape)}")
     kernels = check_kernels(batch, "(b) B=64 L=2^23", timed=True, edge=False)
+    frames = int(stft.frame_counts(batch.n_samples).clamp(max=MAIN_L // 1024).sum())
+    ntiles = -(-(MAIN_L // 1024) // 64)
+    works = {
+        "fused_stats": bounds.stats_work(MAIN_B, MAIN_L),
+        "stft_power": bounds.power_work(frames, MAIN_B, ntiles),
+    }
+    works["fused_all"] = bounds.add(works["fused_stats"], works["stft_power"])
+    library = {"fused_all": None, "fused_stats": None, "stft_power": k3_library_ms(batch)}
     for name, (_, ms, plain_ms) in kernels.items():
+        bound, by = bounds.bound_ms(works[name])
+        lib = library[name]
         log(f"{name} B=64 L=2^23 warm median of 5: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms {label}")
+            f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), library call "
+            f"{'none' if lib is None else f'{lib:.3f} ms'} {label}")
 
     # 4. the main path, through the user's entry point; every count is set
     # to 0 just before each path runs and read just after
@@ -427,22 +567,81 @@ def main() -> int:
         raise AssertionError(f"distance_matrix max err {dm_err}")
     log(f"distance_matrix 64x64 vs numpy float64: max abs err {dm_err:.2e}")
 
-    replaces = {
-        "fused_all": "bliss_tpu/kernels/fused_all.py:52",
-        "fused_stats": "bliss_tpu/kernels/fused_stats.py:71",
-        "stft_power": "bliss_tpu/kernels/pallas_stft.py:75",
+    # 7. the ablation: each variant against its plain version, then its path
+    ab = importlib.import_module("bliss_tpu_torch.ablate.__main__")
+    checked = [check_ablation(batch_inputs(edge), "(a) B=4 L=2^18 edge cases")]
+    sinp = ab.inputs("script")
+    checked.append(check_ablation(sinp, "(b) B=128 L=491520"))
+    inp = ab.inputs("main")
+    main_checked = check_ablation(inp, "(c) B=64 L=2^23", timed=True)
+    checked.append(main_checked)
+    for shape, x in (("script", sinp), ("main", inp)):
+        for deg, hw in ((18, 200), (14, 128)):
+            rep = matred.numerics_report(x["x"], x["alpha"], x["beta"], deg, hw)
+            log(f"matred numerics report {shape} vs fused_stats_call: {rep}")
+    del inp, sinp, x
+    ab_fused.LAUNCHES = probe.LAUNCHES = matred.LAUNCHES = 0
+    ab_rows = ab.run("script", log=log) + ab.run("main", log=log)
+    launches.update(stats_ablate=ab_fused.LAUNCHES, probe=probe.LAUNCHES,
+                    matred_stats=matred.LAUNCHES)
+    if not (ab_fused.LAUNCHES and probe.LAUNCHES and matred.LAUNCHES):
+        raise AssertionError(
+            f"the ablation launched A1 {ab_fused.LAUNCHES}, A2 {probe.LAUNCHES}, A3 "
+            f"{matred.LAUNCHES} times; want each at least once"
+        )
+    log(f"ablation path: launches A1 {ab_fused.LAUNCHES}, A2 {probe.LAUNCHES}, "
+        f"A3 {matred.LAUNCHES} {label}")
+
+    entries = []
+    for name, (errs, ms, plain_ms) in kernels.items():
+        bound, by = bounds.bound_ms(works[name])
+        entries.append({
+            "name": name, "source": "bliss_tpu_torch/kernels/csrc/fused_all.cu",
+            "replaces": {
+                "fused_all": "bliss_tpu/kernels/fused_all.py:52",
+                "fused_stats": "bliss_tpu/kernels/fused_stats.py:71",
+                "stft_power": "bliss_tpu/kernels/pallas_stft.py:75",
+            }[name],
+            "max_abs_err": max(a for a, _ in errs.values()),
+            "errors": {k: {"max_abs": a, "max_rel": r} for k, (a, r) in errs.items()},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        })
+    ab_replaces = {
+        "stats_ablate": "scripts/ablate_fused.py:36",
+        "probe": ("scripts/ablate_fused.py:154, scripts/ablate_dma.py:38, "
+                  "scripts/ablate_dma.py:55, scripts/ablate_dma.py:88, "
+                  "scripts/ablate_packread.py:51, scripts/ablate_packread.py:64, "
+                  "scripts/ablate_packread.py:82"),
+        "matred_stats": "scripts/proto_matred.py:57",
     }
-    log(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": "bliss_tpu_torch/kernels/csrc/fused_all.cu",
-        "replaces": replaces[name],
-        "launches": launches[name],
-        "max_abs_err": max(a for a, _ in errs.values()),
-        "errors": {k: {"max_abs": a, "max_rel": r} for k, (a, r) in errs.items()},
-        "ms": ms,
-        "plain_ms": plain_ms,
-    } for name, (errs, ms, plain_ms) in kernels.items()]}))
+    # each ablation kernel's row: its main-path-shaped variant
+    main_cases = {"stats_ablate": ("A1", "stats full"), "probe": ("A2", "S2 touch i16"),
+                  "matred_stats": ("A3", "S4 matred cheb18/200")}
+    for name, (kernel_id, case_name) in main_cases.items():
+        rows = [r for r in ab_rows if r["kernel"] == kernel_id]
+        row = next(r for r in rows if r["shape"] == "main" and r["name"] == case_name)
+        errs = [e for c in checked for n, (errs_n, _, _) in c.items()
+                if n in {r["name"] for r in rows} for e in errs_n.values()]
+        _, plain_ms, lib_ms = main_checked[case_name]
+        library[name] = lib_ms
+        entries.append({
+            "name": name, "source": "bliss_tpu_torch/kernels/csrc/ablate.cu",
+            "replaces": ab_replaces[name],
+            "max_abs_err": max(a for a, _ in errs), "max_rel_err": max(r for _, r in errs),
+            "ms": row["ms"], "plain_ms": plain_ms,
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "variants": {
+                f"{r['shape']} {r['name']}": {
+                    "ms": r["ms"], "bound_ms": r["bound_ms"],
+                    **({"plain_ms": main_checked[r["name"]][1],
+                        "library_ms": main_checked[r["name"]][2]}
+                       if r["shape"] == "main" else {}),
+                } for r in rows
+            },
+        })
+    for e in entries:
+        e.update(route="cuda", launches=launches[e["name"]], library_ms=library[e["name"]])
+    log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -11,6 +11,7 @@ import torch
 from bliss_tpu_torch.config import AnalysisConfig
 from bliss_tpu_torch.features.analyze import analyze_batch, analyze_batch_hybrid
 from bliss_tpu_torch.features.types import PCMBatch
+from bliss_tpu_torch.ablate import dma, fused as ablate_fused, matred, packread, probe
 from bliss_tpu_torch.kernels import fused_all, fused_stats, stft
 
 pytestmark = pytest.mark.cuda
@@ -135,3 +136,109 @@ def test_each_path_launches_only_its_own_kernels(cuda):
     analyze_batch_hybrid(batch, AnalysisConfig.for_gpu_hybrid())
     torch.cuda.synchronize()
     assert _counters() == (before[0], before[1] + 2, before[2] + 2)
+
+
+# ---- the measurement kernels A1-A3 (bliss_tpu_torch.ablate) -------------------
+
+
+def _ablate_inputs(cuda):
+    """B=3, L=32768: the scripts' uniform int16 with a silent stretch, and a
+    full-range song; alpha, beta from the prepass."""
+    rng = np.random.RandomState(4)
+    x = rng.randint(-3000, 3000, size=(3, 32768)).astype(np.int16)
+    x[0, :700] = 0
+    x[2] = rng.randint(-32768, 32768, size=32768)
+    x = torch.from_numpy(x).to(cuda)
+    alpha, beta, _ = fused_stats.normalization(x, torch.full((3,), 32768, device=cuda))
+    return x, alpha, beta
+
+
+def _ablate_counters():
+    return ablate_fused.LAUNCHES, probe.LAUNCHES, matred.LAUNCHES
+
+
+def _max_err(got, ref, scale):
+    return float(((got.double() - ref.double()).abs() / scale).max())
+
+
+@pytest.mark.parametrize("variant", list(ablate_fused.VARIANTS))
+def test_stats_variant_kernel_matches_plain(cuda, variant):
+    """Rows s1..da within 1e-9 of the block's sum of z^2 (+1) in float64,
+    1e-5 for the float32 FIR; wsum within 1e-5 of |ref| + 1; rownz equal."""
+    x, a, b = _ablate_inputs(cuda)
+    before = _ablate_counters()
+    got = ablate_fused.stats_variant(x, a, b, variant, chunk=8192)
+    torch.cuda.synchronize()
+    assert _ablate_counters() == (before[0] + 1, before[1], before[2])
+    ref = ablate_fused.stats_variant_reference(x, a, b, variant, chunk=8192)
+    assert got.dtype == ref.dtype and got.shape == ref.shape == (3, 4, 8, 32)
+    assert torch.equal(got[:, :, 7], ref[:, :, 7])
+    assert _max_err(got[:, :, 6], ref[:, :, 6], ref[:, :, 6].abs() + 1.0) < 1e-5
+    tol = 1e-5 if variant == "fir_fp32" else 1e-9
+    assert _max_err(got[:, :, :6], ref[:, :, :6], ref[:, :, 1:2].double() + 1.0) < tol
+
+
+PROBES = [("zero", torch.int16), ("slice", torch.int16), ("slice", torch.int32),
+          ("slice", torch.float32), ("convert", torch.int16), ("sum1", torch.int16),
+          ("sum1", torch.int32), ("sum1", torch.float32), ("sum6", torch.int16),
+          ("packed", torch.int32)]
+
+
+@pytest.mark.parametrize("mode,dtype", PROBES, ids=[f"{m}-{str(d)[6:]}" for m, d in PROBES])
+def test_probe_kernel_matches_plain(cuda, mode, dtype):
+    """Equal for int16 and float32 copies of int16 sums; within 1e-6 of the
+    row's sum of |term| (+1) for squares and int32 words."""
+    x, _, _ = _ablate_inputs(cuda)
+    x = packread.packed_words(x) if mode == "packed" else x.to(dtype)
+    rows, nblk = probe.rows(x, 8192 // (2 if mode == "packed" else 1))
+    before = _ablate_counters()
+    got = probe.probe(rows, nblk, mode)
+    torch.cuda.synchronize()
+    assert _ablate_counters() == (before[0], before[1] + 1, before[2])
+    ref = probe.probe_reference(rows, nblk, mode)
+    scale = probe.probe_reference(rows, nblk, mode, absolute=True).double() + 1.0
+    assert got.shape == ref.shape
+    if mode in ("sum6",) or dtype == torch.int32:
+        assert _max_err(got, ref, scale) < 1e-6
+    else:
+        assert torch.equal(got, ref)
+
+
+def test_script_wrappers_launch_the_probe(cuda):
+    x, _, _ = _ablate_inputs(cuda)
+    before = probe.LAUNCHES
+    calls = [
+        (ablate_fused.reduce_probe(x, "six_sums", chunk=8192),
+         ablate_fused.reduce_probe_reference(x, "six_sums", chunk=8192)),
+        (dma.call_noin(x, chunk=8192), dma.call_noin_reference(x, chunk=8192)),
+        (dma.call_x(x, chunk=8192), dma.call_x_reference(x, chunk=8192)),
+        (packread.call_i16(x, chunk=8192), packread.call_i16_reference(x, chunk=8192)),
+    ]
+    w = packread.packed_words(x)
+    calls.append((packread.call_packed(w, chunk=8192), packread.call_packed_reference(w, chunk=8192)))
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES == before + 5
+    for got, ref in calls:
+        assert got.shape == ref.shape and got.is_cuda
+        assert torch.allclose(got, ref, rtol=1e-6, atol=1.0)
+
+
+@pytest.mark.parametrize("fit", [(18, 200), (14, 128)], ids=["cheb18_200", "cheb14_128"])
+def test_matred_kernel_matches_plain(cuda, fit):
+    """Columns of z and delta within 1e-9 of the block's sum of z^2 (+1),
+    wsum within 1e-5 of |ref| + 1, counts equal; with the shipped fit the
+    energies assemble to the stats kernel's."""
+    x, a, b = _ablate_inputs(cuda)
+    before = _ablate_counters()
+    got = matred.proto_call(x, a, b, *fit, chunk=8192)
+    torch.cuda.synchronize()
+    assert _ablate_counters() == (before[0], before[1], before[2] + 1)
+    ref = matred.matred_reference(x, a, b, *fit, chunk=8192)
+    assert got.shape == ref.shape == (3, 4, 32, 8)
+    assert torch.equal(got[..., 7], ref[..., 7])
+    assert _max_err(got[..., 6], ref[..., 6], ref[..., 6].abs() + 1.0) < 1e-5
+    assert _max_err(got[..., :6], ref[..., :6], ref[..., 2:3] + 1.0) < 1e-9
+    report = matred.numerics_report(x, a, b, *fit)
+    assert report["rownz_agree"]
+    if fit == (18, 200):
+        assert report["energy_max_rel"] < 1e-9

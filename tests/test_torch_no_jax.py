@@ -1,7 +1,8 @@
 """The port runs where JAX is absent, as on the GPU machines: a fresh
 interpreter in which ``jax``, ``ml_dtypes`` and ``bliss_tpu`` cannot be
 imported runs ``analyze_pcm`` on the CPU, under the main path's config and
-the hybrid config (two kernels, then the NumPy/SciPy host finish)."""
+the hybrid config (two kernels, then the NumPy/SciPy host finish), imports
+every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant."""
 
 import os
 import subprocess
@@ -29,6 +30,14 @@ hybrid = bliss_tpu_torch.analyze_pcm(
 )
 assert np.array_equal(hybrid[:, 0], out[:, 0]), (hybrid, out)
 assert np.abs(hybrid[:, 1:] - out[:, 1:]).max() <= 1e-3, (hybrid, out)
+import importlib
+from bliss_tpu_torch.ablate import dma, fused, matred, packread, probe
+ablate_main = importlib.import_module("bliss_tpu_torch.ablate.__main__")
+x16 = torch.from_numpy(rng.randint(-3000, 3000, size=(2, 4096)).astype(np.int16))
+ab = (torch.full((2,), 1e-3), torch.full((2,), 1e-5))
+v = fused.stats_variant(x16, *ab, "full", chunk=2048)
+assert v.shape == (2, 2, 8, 8) and torch.isfinite(v).all(), v
+assert ablate_main.main(["--shape", "script"]) == 2  # no GPU here: exits, times nothing
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())

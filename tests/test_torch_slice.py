@@ -149,3 +149,16 @@ def test_distance_and_cosine_matrices(vectors, self_pairs):
     np.testing.assert_allclose(ct, cj, rtol=1e-5, atol=1e-5)
     if self_pairs:
         assert (np.diag(dt) == 0).all() and np.array_equal(dt, dt.T)
+
+
+def test_entry_points_default_to_the_gpu():
+    """Without ``device`` the entry points run on the GPU; where there is
+    none they raise rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default runs there")
+    songs, durs = _songs()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bliss_tpu_torch.analyze_pcm(songs, durs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PCMBatch.from_arrays(songs, durs)
+    assert PCMBatch.from_arrays(songs, durs, device="cpu").samples.device.type == "cpu"
