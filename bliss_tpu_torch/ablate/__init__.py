@@ -11,6 +11,7 @@ counterparts of the TPU harnesses under ``scripts/``.
   shipped or a narrower Chebyshev fit (kernel A3,
   ``scripts/proto_matred.py``).
 
-``python -m bliss_tpu_torch.ablate`` times every variant on the card. None
+``breakdown`` lists every variant and times it on the card, as
+``python -m bliss_tpu_torch.ablate`` prints it. None
 of this runs on the analysis path.
 """

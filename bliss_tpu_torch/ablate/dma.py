@@ -4,7 +4,7 @@ through the probe kernel A2 (``probe.py``), in the script's layout
 
 - ``call_noin``: zeros, reading no input (the grid and the output's write);
 - ``call_x``: the first 8 rows of each chunk, first NBLK elements each
-  (int16, int32 or float32; rows of ``lanes`` = 256 elements);
+  (int16, int32 or float32; rows of 256 elements);
 - ``call_touch``: every row's sum, so every element is read.
 
 Each ``call_*`` launches the kernel on a CUDA tensor and runs its plain
@@ -29,20 +29,13 @@ def call_noin_reference(x: torch.Tensor, *, chunk: int = CHUNK) -> torch.Tensor:
     return _probe.probe_reference(*_probe.rows(x, chunk), "zero")
 
 
-def _lanes(lanes: int) -> None:
-    if lanes != _probe.ROW:
-        raise ValueError(f"the probe kernel reads rows of {_probe.ROW} elements, got lanes={lanes}")
-
-
-def call_x(x: torch.Tensor, lanes: int = _probe.ROW, *, chunk: int = CHUNK) -> torch.Tensor:
-    """x [B, L] seen as rows of ``lanes`` elements: out[b, c, i, j] =
+def call_x(x: torch.Tensor, *, chunk: int = CHUNK) -> torch.Tensor:
+    """x [B, L] seen as rows of 256 elements: out[b, c, i, j] =
     x[b, c*NBLK + i, j] for j < 256, else 0."""
-    _lanes(lanes)
     return _probe.probe(*_probe.rows(x, chunk), "slice")
 
 
-def call_x_reference(x: torch.Tensor, lanes: int = _probe.ROW, *, chunk: int = CHUNK) -> torch.Tensor:
-    _lanes(lanes)
+def call_x_reference(x: torch.Tensor, *, chunk: int = CHUNK) -> torch.Tensor:
     return _probe.probe_reference(*_probe.rows(x, chunk), "slice")
 
 

@@ -17,9 +17,10 @@ It returns the script's own layout, [B, NC, 8, NBLK] for NC chunks of
 ``chunk`` samples and NBLK = chunk // 256 hop blocks, rows (s1, s2, sa, d1,
 d2, da, wsum, rownz): the block's sums of z, z^2 and (-1)^t z, the sums of
 the window-reset correction's share of them, the amplitude weight sum and
-the any-nonzero flag. From the kernel's pieces: s = tail + head and
-d = reset - head. The history before sample 0 is normalized zero, after it
-the previous raw samples, normalized (the script's ``no_hist``).
+the any-nonzero flag. From the kernel's pieces (``stats_pieces``, the
+launch alone): s = tail + head and d = reset - head. The history before
+sample 0 is normalized zero, after it the previous raw samples, normalized
+(the script's ``no_hist``).
 
 ``reduce_probe(x, body)`` runs the script's ``run_variant2`` bodies
 (``zero``, ``convert``, ``one_sum``, ``sums_stack``, ``six_sums``) through
@@ -58,15 +59,17 @@ BODIES = {
     "six_sums": "sum6",
 }
 
-# Launches of the CUDA kernel A1: one per stats_variant on a CUDA tensor.
+# Launches of the CUDA kernel A1: one per stats_pieces (so per stats_variant)
+# on a CUDA tensor.
 LAUNCHES = 0
 
 
-def _check(x, alpha, beta, variant, chunk):
+def _check(x, alpha, beta, variant, chunk=None):
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {sorted(VARIANTS)}")
     fs.check_stats_inputs(x, alpha, beta, None, 1, TAPS, fs.BLK)
-    _probe.rows(x, chunk)
+    if chunk is not None:
+        _probe.rows(x, chunk)
 
 
 def script_rows(wsum, rownz, stats, chunk: int) -> torch.Tensor:
@@ -83,15 +86,25 @@ def script_rows(wsum, rownz, stats, chunk: int) -> torch.Tensor:
     return rows.reshape(B, 8, NBF // nblk, nblk).transpose(1, 2).contiguous()
 
 
-def stats_variant(
+def _pieces_reference(x, alpha, beta, variant):
+    _, cheb, conv, warm, dtype = VARIANTS[variant]
+    return fs.block_stats_reference(
+        x, alpha, beta, nb_bands=1, band_taps=TAPS, filterbank="firwin",
+        cheb=cheb, conv=conv, warm=warm, fir_dtype=dtype,
+    )
+
+
+def stats_pieces(
     x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, variant: str,
-    *, chunk: int = CHUNK,
-) -> torch.Tensor:
-    """[B, NC, 8, NBLK] of int16 x [B, L] (L a multiple of ``chunk``) under
-    ``variant``; float64, float32 for ``fir_fp32``."""
-    _check(x, alpha, beta, variant, chunk)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The stats kernel's own outputs under ``variant``: wsum and rownz
+    [B, L/256] and the pieces [B, 1, 9, L/256] (tail, head, reset; each
+    v, v^2, (-1)^t v). One launch of A1 on a CUDA tensor, with no copy
+    after it (what ``python -m bliss_tpu_torch.ablate`` times); the plain
+    version on a CPU tensor."""
+    _check(x, alpha, beta, variant)
     if x.device.type == "cpu":
-        return stats_variant_reference(x, alpha, beta, variant, chunk=chunk)
+        return _pieces_reference(x, alpha, beta, variant)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     from bliss_tpu_torch.kernels import _build
@@ -100,10 +113,20 @@ def stats_variant(
     index, *_, dtype = VARIANTS[variant]
     tabs = dict(device_tables(1, TAPS, "firwin", x.device))
     tabs["fir"], tabs["warm"] = tabs["fir"].to(dtype), tabs["warm"].to(dtype)
-    args, (wsum, rownz, stats) = fs.stats_launch_args(x, alpha, beta, None, tabs, 1, TAPS)
+    args, outs = fs.stats_launch_args(x, alpha, beta, None, tabs, 1, TAPS)
     _build.launch("ablate", "bliss_stats_ablate", x.device, index, *args)
     LAUNCHES += 1
-    return script_rows(wsum, rownz, stats, chunk)
+    return outs
+
+
+def stats_variant(
+    x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, variant: str,
+    *, chunk: int = CHUNK,
+) -> torch.Tensor:
+    """[B, NC, 8, NBLK] of int16 x [B, L] (L a multiple of ``chunk``) under
+    ``variant``; float64, float32 for ``fir_fp32``."""
+    _check(x, alpha, beta, variant, chunk)
+    return script_rows(*stats_pieces(x, alpha, beta, variant), chunk)
 
 
 def stats_variant_reference(
@@ -114,12 +137,7 @@ def stats_variant_reference(
     plain version (``fused_stats.block_stats_reference``) with the same
     stages switched off."""
     _check(x, alpha, beta, variant, chunk)
-    _, cheb, conv, warm, dtype = VARIANTS[variant]
-    wsum, rownz, stats = fs.block_stats_reference(
-        x, alpha, beta, nb_bands=1, band_taps=TAPS, filterbank="firwin",
-        cheb=cheb, conv=conv, warm=warm, fir_dtype=dtype,
-    )
-    return script_rows(wsum, rownz, stats, chunk)
+    return script_rows(*_pieces_reference(x, alpha, beta, variant), chunk)
 
 
 def _body_rows(x, body, chunk):

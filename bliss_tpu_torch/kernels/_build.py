@@ -9,8 +9,8 @@ a module is imported, and a missing ``nvcc`` or a failed build raises.
 ``library(name)`` binds the entry points of ``csrc/<name>.cu``:
 ``fused_all`` (K1, K2 and K3) and ``ablate`` (the measurement kernels A1,
 A2 and A3 of ``bliss_tpu_torch.ablate``). ``launch`` calls one entry point
-on the tensor's current stream and raises if the launch failed. Two
-libraries may build at once, from two threads.
+on the tensor's current stream and raises if the launch failed.
+``build(names)`` compiles several sources at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent compiling, compiler's stderr: ptxas register and
 # spill report); absent when the library was already on disk
@@ -67,32 +66,46 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+
+
+def build(names) -> None:
+    """Compiles each of ``csrc/<name>.cu`` for ``names`` whose current
+    sources have not been built yet, all ``nvcc`` processes started
+    together; raises if any fails."""
+    with _lock:
+        todo = [n for n in dict.fromkeys(names) if not _path(n).exists()]
+        if not todo:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc, t0, procs = nvcc_path(), time.perf_counter(), {}
+        for name in todo:
+            tmp = _path(name).with_name(f"{_path(name).name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) for {name}.cu:\n{out}\n{err}")
+                continue
+            BUILD_INFO[name] = (time.perf_counter() - t0, err)
+            os.replace(tmp, _path(name))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, building it first
     if the current sources have not been built yet."""
-    with _lock:
-        name_lock = _name_locks.setdefault(name, threading.Lock())
-    with name_lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        out = BUILD_DIR / f"lib{name}-{_digest()}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            BUILD_INFO[name] = (time.perf_counter() - t0, proc.stderr)
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _libs[name] = lib
-        return lib
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        with _lock:
+            lib = _libs.setdefault(name, ctypes.CDLL(str(_path(name))))
+    return lib
 
 
 _VP = ctypes.c_void_p

@@ -2,28 +2,31 @@
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
-and the operations it does on these inputs over the peak rate of the pipe
-that does them (the larger of the per-pipe times, since the pipes run side
-by side). Peaks are NVIDIA's data-sheet figures for the SXM part at its
-700 W limit, dense: 3.35 TB/s of HBM3, 67 TFLOP/s float32 and 34 TFLOP/s
-float64 on the CUDA cores, 67 TFLOP/s float64 on the tensor cores.
+and the operations its function needs on these inputs over the peak rate
+of the pipe that does them (the larger of the per-pipe times, since the
+pipes run side by side). Peaks are NVIDIA's data-sheet figures for the SXM
+part at its 700 W limit, dense: 3.35 TB/s of HBM3, 67 TFLOP/s float32 and
+34 TFLOP/s float64 on the CUDA cores.
 
 Each ``*_work`` function counts, from its call's shapes (and, where the
 work depends on the data, from the data's own frame counts), the bytes and
-the floating-point operations by pipe of the port's kernel of that name;
+the least floating-point operations by pipe of the function that the
+port's kernel of that name computes, whatever algorithm the kernel uses;
 ``bound_ms`` turns a count into (milliseconds, "bytes" or "operations").
 """
 
 from __future__ import annotations
 
+import math
+
 PEAK = {
     "bytes": 3.35e12,
     "fp32": 67e12,
     "fp64": 34e12,
-    "fp64_tensor": 67e12,
 }
 BLK = 256  # hop block: the stats kernel's row
 CHEB_COEFFS = 19  # the shipped amplitude fit: degree 18
+FRAME = 512  # STFT window, mono samples
 
 
 def bound_ms(work: dict) -> tuple[float, str]:
@@ -44,8 +47,9 @@ def add(*works: dict) -> dict:
 
 
 def _cheb_flops(ncheb: int) -> int:
-    # 1000 - |s + 1|, the fold and clamp, then Clenshaw: 4 a coefficient
-    return 12 + 4 * (ncheb - 1)
+    # 1000 - |s + 1|, the fold and clamp, then Clenshaw: an FMA and a
+    # subtract a coefficient
+    return 12 + 3 * (ncheb - 1)
 
 
 def stats_work(
@@ -54,33 +58,45 @@ def stats_work(
     ncheb: int = CHEB_COEFFS,
 ) -> dict:
     """``stats_kernel`` (K2, K1's first launch, the ablation A1): per sample
-    the normalization (an FMA), per band the FIR (``taps`` FMAs), the
-    block head's correction (K^2 FMAs and K adds a block), 6 products and 9
-    block sums in the FIR's type; the amplitude weight and its sum in
+    the normalization (an FMA); per band the FIR (``taps`` FMAs), z^2 and
+    the sums of z, z^2 and (-1)^t z (an add or a subtract each; a sample
+    goes to its block's tail or head pieces, never both); per block head
+    sample the correction (K FMAs), y = z + delta and y's own square and
+    three sums; all in the FIR's type. The amplitude weight and its sum in
     float32. Reads int16 [B, L]; writes wsum and rownz (float32) and
     [B, nb, 9, L/256] sums."""
     n, nbf, K = B * L, B * (L // BLK), taps - 1
-    per_band = 6 + 9 + (2 * taps if conv else 0) + ((2 * K * K + K) / BLK if warm else 0)
-    fir_ops = n * (2 + nb * per_band)
+    per_band = 4 + (2 * taps if conv else 0) + (K * (2 * K + 5) / BLK if warm else 0)
     work = {
         "bytes": 2 * n + 8 * nbf + fir_bytes * 9 * nb * nbf,
         "fp32": n * ((_cheb_flops(ncheb) if cheb else 0) + 1),
     }
     pipe = "fp64" if fir_bytes == 8 else "fp32"
-    work[pipe] = work.get(pipe, 0) + fir_ops
+    work[pipe] = work.get(pipe, 0) + n * (2 + nb * per_band)
     return work
 
 
 def power_work(frames: int, B: int, ntiles: int) -> dict:
     """``power_kernel`` (K3, K1's second launch) over ``frames`` 512-sample
     stereo frames that count: reads them (2048 bytes each) and the
-    [512, 512] float32 DFT table, writes [B, ntiles, 512] partial sums; per
-    frame the downmix (2 a sample), a 512 x 512 product (2 a term) and the
-    squared sums (2 a column), all float32."""
+    [512, 512] float32 DFT table, writes [B, ntiles, 512] partial sums. Its
+    function's least work a frame, all float32: the downmix (2 a sample),
+    the Hann window (1 a sample), a real FFT (2.5 N log2 N for N = 512;
+    the kernel does a dense 2 N^2 product instead) and |X|^2 summed over
+    frames (4 a bin, 257 bins)."""
+    fft = 2.5 * FRAME * math.log2(FRAME)
     return {
-        "bytes": 2048 * frames + 4 * 512 * 512 + 4 * B * ntiles * 512,
-        "fp32": frames * (2 * 512 + 2 * 512 * 512 + 2 * 512),
+        "bytes": 2048 * frames + 4 * FRAME * FRAME + 4 * B * ntiles * FRAME,
+        "fp32": frames * (3 * FRAME + fft + 4 * (FRAME // 2 + 1)),
     }
+
+
+def fused_all_work(B: int, L: int, frames: int, ntiles: int) -> dict:
+    """``bliss_fused_all`` (K1): K2's and K3's work, with the PCM read once
+    (the stats pass reads every sample, so K3's frames add no bytes)."""
+    work = add(stats_work(B, L), power_work(frames, B, ntiles))
+    work["bytes"] -= 2048 * frames
+    return work
 
 
 def probe_work(mode: str, B: int, R: int, nblk: int, elem_bytes: int) -> dict:
@@ -100,19 +116,12 @@ def probe_work(mode: str, B: int, R: int, nblk: int, elem_bytes: int) -> dict:
 
 
 def matred_work(B: int, L: int, *, taps: int = 17, ncheb: int = CHEB_COEFFS) -> dict:
-    """The matrix-reduction kernel A3: per sample the normalization, the
-    FIR and z^2 in fp64 on the CUDA cores (and per block head the
-    correction and 2 z delta + delta^2), the amplitude weight in float32;
-    per 8 hop blocks 8 warps x 8 steps x 4 products m8n8k4 (512 FLOP each)
-    for z, z^2, w and the nonzero flags, plus 2 x ceil(K/4) for the head's
-    pieces, on the fp64 tensor cores. Reads int16 [B, L]; writes
-    [B, L/256, 8] float64."""
-    n, nbf, K = B * L, B * (L // BLK), taps - 1
-    ctas = B * -(-(L // BLK) // 8)
-    mmas = 8 * 8 * 4 + 2 * -(-K // 4)
-    return {
-        "bytes": 2 * n + 8 * 8 * nbf,
-        "fp64": n * (2 + 2 * taps + 1) + nbf * (2 * K * K + 3 * K),
-        "fp64_tensor": ctas * mmas * 512,
-        "fp32": n * _cheb_flops(ncheb),
-    }
+    """The matrix-reduction kernel A3 computes ``stats_kernel``'s function
+    in another layout (the head's pieces are delta's share, 2 z delta +
+    delta^2 in place of y^2), so its least work is the same operations;
+    whatever products it spends on the sums (its tensor-core selector
+    matrices) are its algorithm's, not its function's. Reads int16 [B, L];
+    writes [B, L/256, 8] float64."""
+    work = stats_work(B, L, taps=taps, ncheb=ncheb)
+    work["bytes"] = 2 * B * L + 8 * 8 * B * (L // BLK)
+    return work

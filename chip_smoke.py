@@ -33,7 +33,7 @@ Phases, one line each, stopping at the first failure:
    plain versions and, for the row sums, ``torch.sum`` of the same rows
    are timed too; A3's numerics report against the shipped stats kernel;
    then the ablation's own path,
-   ``bliss_tpu_torch.ablate``'s ``run`` at both shapes, which times every
+   ``bliss_tpu_torch.ablate.breakdown.run`` at both shapes, which times every
    variant and must launch each of A1, A2 and A3.
 
 The last two lines of standard output are a JSON line of the kernels and
@@ -45,7 +45,6 @@ and prints no result. Needs one card.
 from __future__ import annotations
 
 import dataclasses
-import importlib
 import json
 import os
 import shutil
@@ -53,7 +52,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -325,9 +323,10 @@ def check_ablation(inp, label, timed=False):
     ``timed``, also the warm median of 5 of the plain version and, for the
     row-sum probes, of ``torch.sum`` of the same rows. Returns {case name:
     (errors, plain_ms, library_ms)}."""
-    ab = importlib.import_module("bliss_tpu_torch.ablate.__main__")
+    from bliss_tpu_torch.ablate import breakdown
+
     out = {}
-    for case in ab.cases(inp):
+    for case in breakdown.cases(inp):
         if case["plain"] is None:
             continue
         got = case["call"]()
@@ -395,8 +394,8 @@ def main() -> int:
     from bliss_tpu_torch.features.types import PCMBatch
     from bliss_tpu_torch.features.analyze import _device_stage_packed, _unpack_stage
     from bliss_tpu_torch.features.tempo import envelope_finish_host
+    from bliss_tpu_torch.ablate import breakdown, matred, probe
     from bliss_tpu_torch.ablate import fused as ab_fused
-    from bliss_tpu_torch.ablate import matred, probe
     from bliss_tpu_torch.kernels import _build, bounds
     from bliss_tpu_torch.kernels import fused_all as fa
     from bliss_tpu_torch.kernels import fused_stats as fs
@@ -412,11 +411,10 @@ def main() -> int:
 
     # 2. build, one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(_build.library, ("fused_all", "ablate")))
+    _build.build(("fused_all", "ablate"))
     for name in ("fused_all", "ablate"):
         secs, report = _build.BUILD_INFO.get(name, (0.0, "already built"))
-        log(f"build: {name}.cu sm_90a in {secs:.1f} s (both loaded after "
+        log(f"build: {name}.cu sm_90a in {secs:.1f} s (both built after "
             f"{time.perf_counter() - t0:.1f} s); {ptxas_report(report)}")
 
     # 3. kernel vs plain
@@ -436,10 +434,10 @@ def main() -> int:
     frames = int(stft.frame_counts(batch.n_samples).clamp(max=MAIN_L // 1024).sum())
     ntiles = -(-(MAIN_L // 1024) // 64)
     works = {
+        "fused_all": bounds.fused_all_work(MAIN_B, MAIN_L, frames, ntiles),
         "fused_stats": bounds.stats_work(MAIN_B, MAIN_L),
         "stft_power": bounds.power_work(frames, MAIN_B, ntiles),
     }
-    works["fused_all"] = bounds.add(works["fused_stats"], works["stft_power"])
     library = {"fused_all": None, "fused_stats": None, "stft_power": k3_library_ms(batch)}
     for name, (_, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
@@ -568,11 +566,10 @@ def main() -> int:
     log(f"distance_matrix 64x64 vs numpy float64: max abs err {dm_err:.2e}")
 
     # 7. the ablation: each variant against its plain version, then its path
-    ab = importlib.import_module("bliss_tpu_torch.ablate.__main__")
     checked = [check_ablation(batch_inputs(edge), "(a) B=4 L=2^18 edge cases")]
-    sinp = ab.inputs("script")
+    sinp = breakdown.inputs("script")
     checked.append(check_ablation(sinp, "(b) B=128 L=491520"))
-    inp = ab.inputs("main")
+    inp = breakdown.inputs("main")
     main_checked = check_ablation(inp, "(c) B=64 L=2^23", timed=True)
     checked.append(main_checked)
     for shape, x in (("script", sinp), ("main", inp)):
@@ -581,7 +578,7 @@ def main() -> int:
             log(f"matred numerics report {shape} vs fused_stats_call: {rep}")
     del inp, sinp, x
     ab_fused.LAUNCHES = probe.LAUNCHES = matred.LAUNCHES = 0
-    ab_rows = ab.run("script", log=log) + ab.run("main", log=log)
+    ab_rows = breakdown.run("script", log=log) + breakdown.run("main", log=log)
     launches.update(stats_ablate=ab_fused.LAUNCHES, probe=probe.LAUNCHES,
                     matred_stats=matred.LAUNCHES)
     if not (ab_fused.LAUNCHES and probe.LAUNCHES and matred.LAUNCHES):

@@ -201,7 +201,7 @@ def test_call_x_matches_ablate_dma(dtype):
     np_t, _ = DTYPES[dtype]
     xd = X.astype(np_t)
     ref = np.asarray(_dma_ns()["make_call_x"](getattr(jnp, dtype), BLK)(jnp.asarray(xd)))
-    got = dma.call_x(torch.from_numpy(xd), BLK, chunk=CHUNK).numpy()
+    got = dma.call_x(torch.from_numpy(xd), chunk=CHUNK).numpy()
     assert got.shape == ref.shape and np.array_equal(got, ref)
 
 
@@ -303,7 +303,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
         lambda x, a, b: fused.stats_variant(x.int(), a, b, "full", chunk=CHUNK),
         lambda x, a, b: fused.stats_variant(x, a, b, "full", chunk=3000),
         lambda x, a, b: fused.reduce_probe(x, "seven_sums", chunk=CHUNK),
-        lambda x, a, b: dma.call_x(x, 128, chunk=CHUNK),
+        lambda x, a, b: dma.call_x(x.double(), chunk=CHUNK),
         lambda x, a, b: dma.call_touch(x.double(), chunk=CHUNK),
         lambda x, a, b: dma.call_noin(x, chunk=1024),
         lambda x, a, b: packread.call_packed(x, chunk=CHUNK),
@@ -312,7 +312,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
         lambda x, a, b: matred.proto_call(x, a, b, 40, 200, chunk=CHUNK),
         lambda x, a, b: probe.probe(x.reshape(B, -1, 128), 8, "sum1"),
     ],
-    ids=["variant", "dtype", "chunk", "body", "lanes", "float64", "small_chunk",
+    ids=["variant", "dtype", "chunk", "body", "x_float64", "float64", "small_chunk",
          "packed_int16", "i16_int32", "alpha_shape", "cheb_degree", "row_width"],
 )
 def test_wrappers_raise_on_what_the_kernels_do_not_take(call):

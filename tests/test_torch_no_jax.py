@@ -30,14 +30,13 @@ hybrid = bliss_tpu_torch.analyze_pcm(
 )
 assert np.array_equal(hybrid[:, 0], out[:, 0]), (hybrid, out)
 assert np.abs(hybrid[:, 1:] - out[:, 1:]).max() <= 1e-3, (hybrid, out)
-import importlib
-from bliss_tpu_torch.ablate import dma, fused, matred, packread, probe
-ablate_main = importlib.import_module("bliss_tpu_torch.ablate.__main__")
+from bliss_tpu_torch.ablate import breakdown, dma, fused, matred, packread, probe
+from bliss_tpu_torch.ablate.__main__ import main as ablate_main
 x16 = torch.from_numpy(rng.randint(-3000, 3000, size=(2, 4096)).astype(np.int16))
 ab = (torch.full((2,), 1e-3), torch.full((2,), 1e-5))
 v = fused.stats_variant(x16, *ab, "full", chunk=2048)
 assert v.shape == (2, 2, 8, 8) and torch.isfinite(v).all(), v
-assert ablate_main.main(["--shape", "script"]) == 2  # no GPU here: exits, times nothing
+assert ablate_main(["--shape", "script"]) == 2  # no GPU here: exits, times nothing
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())
