@@ -29,7 +29,8 @@ def reference_arrays(
 ) -> dict[str, np.ndarray]:
     """The NumPy tables the main path reads, keyed as ``tables_from_numpy``
     expects."""
-    from bliss_tpu_torch.kernels.stft import hann_dft_table  # stft imports this module
+    # stft imports this module
+    from bliss_tpu_torch.kernels.stft import fft_twiddles, hann_dft_table
 
     _, _, c_pos = tables.amplitude_cdf_poly()
     L, Z, M, N = tables.iir_block_operator(iir_block)
@@ -38,6 +39,8 @@ def reference_arrays(
         "fir": tables.bandpass_filterbank(nb_bands, band_taps, filterbank),
         "warm": tables.fir_warmup_correction(nb_bands, band_taps, filterbank),
         "dft": hann_dft_table(),
+        "twiddle": fft_twiddles(),
+        "hann": tables.hann_window(),
         "iir_L": L,
         "iir_Z": Z,
         "iir_M": M,

@@ -112,14 +112,14 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _STATS = [_VP, _I, _I, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP, _I, _I, _VP, _VP, _VP]
-_POWER = [_VP, _I, _I, _VP, _VP, _VP, _VP, _I]
+_POWER = [_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _I]
 # argtypes of each library's entry points (see the extern "C" block of
 # csrc/<name>.cu); each also takes the stream last and returns a cudaError_t
 _SIGNATURES = {
     "fused_all": {
         "bliss_fused_stats": _STATS + [_VP],
         "bliss_stft_power": _POWER + [_VP],
-        "bliss_fused_all": _STATS + [_VP, _VP, _VP, _I, _VP],
+        "bliss_fused_all": _STATS + [_VP, _VP, _VP, _VP, _I, _VP],
         "bliss_power_tile": [],
     },
     "ablate": {

@@ -76,25 +76,24 @@ def stats_work(
     return work
 
 
-def power_work(frames: int, B: int, ntiles: int) -> dict:
+def power_work(frames: int, B: int) -> dict:
     """``power_kernel`` (K3, K1's second launch) over ``frames`` 512-sample
-    stereo frames that count: reads them (2048 bytes each) and the
-    [512, 512] float32 DFT table, writes [B, ntiles, 512] partial sums. Its
-    function's least work a frame, all float32: the downmix (2 a sample),
-    the Hann window (1 a sample), a real FFT (2.5 N log2 N for N = 512;
-    the kernel does a dense 2 N^2 product instead) and |X|^2 summed over
-    frames (4 a bin, 257 bins)."""
+    stereo frames that count: reads them (2048 bytes each) and writes the
+    [B, 257] float32 spectra. Its function's least work a frame, all
+    float32: the downmix (2 a sample), the Hann window (1 a sample), a real
+    FFT (2.5 N log2 N for N = 512) and |X|^2 summed over frames (4 a bin,
+    257 bins)."""
     fft = 2.5 * FRAME * math.log2(FRAME)
     return {
-        "bytes": 2048 * frames + 4 * FRAME * FRAME + 4 * B * ntiles * FRAME,
+        "bytes": 2048 * frames + 4 * B * (FRAME // 2 + 1),
         "fp32": frames * (3 * FRAME + fft + 4 * (FRAME // 2 + 1)),
     }
 
 
-def fused_all_work(B: int, L: int, frames: int, ntiles: int) -> dict:
+def fused_all_work(B: int, L: int, frames: int) -> dict:
     """``bliss_fused_all`` (K1): K2's and K3's work, with the PCM read once
     (the stats pass reads every sample, so K3's frames add no bytes)."""
-    work = add(stats_work(B, L), power_work(frames, B, ntiles))
+    work = add(stats_work(B, L), power_work(frames, B))
     work["bytes"] -= 2048 * frames
     return work
 

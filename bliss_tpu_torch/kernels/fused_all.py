@@ -66,7 +66,7 @@ def fused_all_call(
     n_frames = n_frames.contiguous()
     _build.launch(
         "fused_all", "bliss_fused_all", samples.device, *args, n_frames.data_ptr(),
-        tabs["dft"].data_ptr(), part.data_ptr(), ntiles,
+        tabs["twiddle"].data_ptr(), tabs["hann"].data_ptr(), part.data_ptr(), ntiles,
     )
     LAUNCHES += 1
     return wsum, rownz, fs.assemble_energies(stats), stft.fold_power(part.sum(dim=1))

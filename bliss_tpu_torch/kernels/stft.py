@@ -7,10 +7,13 @@ Hann-windowed 512-point power spectrum of the C-truncated mono downmix,
 summed over each song's non-overlapping 512-sample frames, as [B, 257]
 float32 with a zero Nyquist column (the reference never accumulates it).
 
-On a CUDA tensor it launches ``power_kernel`` of ``csrc/fused_all.cu``; on
-a CPU tensor it runs ``stft_power_reference``, the plain PyTorch version of
-the same function. Both compute in full float32 (no TF32), so the TPU
-kernel's "precise"/"fast" split-matmul modes have no counterpart here.
+On a CUDA tensor it launches ``power_kernel`` of ``csrc/power.cuh``, a
+512-point real FFT of each frame; on a CPU tensor it runs
+``stft_power_reference``, the plain PyTorch version of the same function,
+a float32 product with the Hann-folded DFT table. Both compute in full
+float32 (no TF32), so the TPU kernel's "precise"/"fast" split-matmul modes
+have no counterpart here. ``rfft512_power_steps`` runs the kernel's FFT
+algorithm in PyTorch, step for step, for the tests.
 """
 
 from __future__ import annotations
@@ -39,6 +42,14 @@ def hann_dft_table() -> np.ndarray:
     dre, dim = tables.rdft_matrices()
     h = tables.hann_window()[:, None]
     return np.concatenate([h * dre[:, :NBINS], h * dim[:, :NBINS]], axis=1)
+
+
+def fft_twiddles() -> np.ndarray:
+    """[512, 2] float64: W^k = exp(-2 pi i k / 512) as (re, im), k = 0..511.
+    The spectrum kernel's radix stages take W_256^a = W^(2a) and W_64^a =
+    W^(8a) from it, its real-FFT split step W^k."""
+    ang = -2.0 * np.pi * np.arange(C.WINDOW_SIZE) / C.WINDOW_SIZE
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1)
 
 
 def frame_counts(n_samples: torch.Tensor) -> torch.Tensor:
@@ -70,8 +81,9 @@ def check_power_inputs(samples, n_frames, frame_offset):
 
 
 def power_scratch(samples: torch.Tensor):
-    """(part, ntiles): the spectrum kernel's scratch [B, ntiles, 512] of
-    per-tile partial sums, one tile per ``bliss_power_tile()`` frames."""
+    """(part, ntiles): the spectrum kernel's scratch [B, ntiles, 256] of
+    per-block partial sums of bins 0..255, one block per
+    ``bliss_power_tile()`` frames."""
     from bliss_tpu_torch.kernels import _build
 
     if not samples.is_contiguous() or samples.data_ptr() % 16:
@@ -79,14 +91,13 @@ def power_scratch(samples: torch.Tensor):
     B, L = samples.shape
     tile = _build.library("fused_all").bliss_power_tile()
     ntiles = -(-(L // FRAME) // tile)
-    part = torch.empty(B, ntiles, C.WINDOW_SIZE, dtype=torch.float32, device=samples.device)
+    part = torch.empty(B, ntiles, NBINS, dtype=torch.float32, device=samples.device)
     return part, ntiles
 
 
-def fold_power(power512: torch.Tensor) -> torch.Tensor:
-    """[B, 257]: the re | im columns' summed squares added per bin, with a
-    zero Nyquist column."""
-    return F.pad(power512[:, :NBINS] + power512[:, NBINS:], (0, 1))
+def fold_power(power256: torch.Tensor) -> torch.Tensor:
+    """[B, 257]: bins 0..255 with a zero Nyquist column."""
+    return F.pad(power256, (0, 1))
 
 
 def _offsets(frame_offset, n_frames):
@@ -121,7 +132,7 @@ def stft_power(
     from bliss_tpu_torch.kernels import _build
 
     global LAUNCHES
-    dft = device_tables(1, 17, "firwin", samples.device)["dft"]
+    tabs = device_tables(1, 17, "firwin", samples.device)
     part, ntiles = power_scratch(samples)
     B, L = samples.shape
     n_frames = n_frames.contiguous()
@@ -129,7 +140,7 @@ def stft_power(
     _build.launch(
         "fused_all", "bliss_stft_power", samples.device, samples.data_ptr(), B, L,
         n_frames.data_ptr(), None if offset is None else offset.data_ptr(),
-        dft.data_ptr(), part.data_ptr(), ntiles,
+        tabs["twiddle"].data_ptr(), tabs["hann"].data_ptr(), part.data_ptr(), ntiles,
     )
     LAUNCHES += 1
     return fold_power(part.sum(dim=1))
@@ -151,24 +162,96 @@ def stft_power_reference(
     return power_reference(samples, n_frames, frame_offset)
 
 
-def power_reference(samples, n_frames, frame_offset=None) -> torch.Tensor:
-    """[B, 257] from the frame counts: local frame f counts while
-    ``frame_offset + f < n_frames``."""
-    dft = device_tables(1, 17, "firwin", samples.device)["dft"]
+def mono_frames(samples, n_frames, frame_offset=None) -> torch.Tensor:
+    """float32 [B, L/1024, 512]: each frame's C-truncated mono downmix
+    c_div(l + r, 2), zero where the frame does not count (local frame f
+    counts while ``frame_offset + f < n_frames``)."""
     B, L = samples.shape
-    W = C.WINDOW_SIZE
     NF = L // FRAME
-    pairs = samples.reshape(B, NF, W, 2).to(torch.int32)
+    pairs = samples.reshape(B, NF, C.WINDOW_SIZE, 2).to(torch.int32)
     mono = c_div(pairs[..., 0] + pairs[..., 1], 2).to(torch.float32)
     del pairs
     frame = torch.arange(NF, device=samples.device)[None, :]
     if frame_offset is not None:
         frame = frame + frame_offset[:, None].to(torch.int64)
     keep = frame < n_frames[:, None]
-    mono = mono * keep[..., None].to(torch.float32)
+    return mono * keep[..., None].to(torch.float32)
+
+
+def power_reference(samples, n_frames, frame_offset=None) -> torch.Tensor:
+    """[B, 257] from the frame counts: the mono frames times the [512, 512]
+    Hann-folded DFT table, squared and summed over the frames."""
+    dft = device_tables(1, 17, "firwin", samples.device)["dft"]
+    mono = mono_frames(samples, n_frames, frame_offset)
+    B, NF, W = mono.shape
     y = mono.reshape(B * NF, W) @ dft
     del mono
-    return fold_power((y * y).reshape(B, NF, W).sum(dim=1))
+    y = (y * y).reshape(B, NF, W).sum(dim=1)
+    return fold_power(y[:, :NBINS] + y[:, NBINS:])
+
+
+# ---- the kernel's algorithm, step for step (tests only) ------------------------
+
+
+def _dft4(a0, a1, a2, a3):
+    """The 4-point DFT A_k = sum_n a_n W_4^(nk), as ``dft4`` computes it."""
+    t0, t1, t2, t3 = a0 + a2, a0 - a2, a1 + a3, -1j * (a1 - a3)
+    return t0 + t2, t1 + t3, t0 - t2, t1 - t3
+
+
+def _dft8(v):
+    """The 8-point DFT of the list ``v``, as ``dft8`` computes it: two
+    4-point DFTs of the even and odd points, then one radix-2 step."""
+    e = _dft4(v[0], v[2], v[4], v[6])
+    o = list(_dft4(v[1], v[3], v[5], v[7]))
+    r = np.float32(np.sqrt(0.5))
+    o[1] = torch.complex(r * (o[1].real + o[1].imag), r * (o[1].imag - o[1].real))
+    o[2] = -1j * o[2]
+    o[3] = torch.complex(r * (o[3].imag - o[3].real), -r * (o[3].real + o[3].imag))
+    return [e[q] + o[q] for q in range(4)] + [e[q] - o[q] for q in range(4)]
+
+
+def rfft512_power_steps(y: torch.Tensor) -> torch.Tensor:
+    """float32 [..., 256]: |X_k|^2 for bins 0..255 of the real 512-point
+    frames ``y`` [..., 512] (Hann-windowed mono), computed as
+    ``power_kernel`` computes it, with a lane axis of 32 and 8 values a
+    lane: z[n] = y[2n] + i y[2n+1] (lane j holds n = 2j + e + 64m); a
+    radix-4 step over m, twiddles W_256^(n1 k2); a radix-8 step over p2 in
+    lane 8 k2 + p1 (n1 = p1 + 8 p2), twiddles W_64^(p1 q2); a radix-8 step
+    over p1 in lane 4 q2 + k2, which leaves Z[32 q1 + lane] in value q1;
+    then the split step X_k = (Z_k + conj Z_(256-k)) / 2 - i W^k (Z_k -
+    conj Z_(256-k)) / 2 with Z_(256-k) from lane (32 - lane) % 32. The
+    twiddles are ``fft_twiddles()`` in float32, as the kernel reads them.
+    For the CPU tests: the kernel's index and sign conventions."""
+    lead = y.shape[:-1]
+    y = y.reshape(-1, C.WINDOW_SIZE).to(torch.float32)
+    nfr = y.shape[0]
+    tw32 = torch.from_numpy(fft_twiddles().astype(np.float32))
+    tw = torch.complex(tw32[:, 0], tw32[:, 1])
+    z = torch.complex(y[:, 0::2], y[:, 1::2])  # [F, 256]
+    # lane j, value (e, m): z[64 m + 2 j + e]
+    z = z.reshape(nfr, 4, 32, 2).permute(0, 2, 3, 1)  # [F, j, e, m]
+    a = torch.stack(_dft4(*z.unbind(-1)), dim=-1)  # [F, j, e, k2]
+    n1 = torch.arange(64).reshape(32, 2, 1)
+    a = a * tw[(2 * n1 * torch.arange(4)) % 512]
+    # exchange: lane 8 k2 + p1 takes X1(p1 + 8 p2, k2), p2 = 0..7
+    x1 = a.reshape(nfr, 8, 8, 4).permute(0, 3, 2, 1).reshape(nfr, 32, 8)
+    b = torch.stack(_dft8(x1.unbind(-1)), dim=-1)  # [F, 8 k2 + p1, q2]
+    p1 = torch.arange(32).reshape(32, 1) % 8
+    b = b * tw[8 * p1 * torch.arange(8)]
+    # exchange: lane 4 q2 + k2 takes X2(k2, p1, q2), p1 = 0..7
+    x2 = b.reshape(nfr, 4, 8, 8).permute(0, 3, 1, 2).reshape(nfr, 32, 8)
+    zz = torch.stack(_dft8(x2.unbind(-1)), dim=-1)  # [F, lane, q1]: Z[32 q1 + lane]
+    # split step: Z_(256 - k) sits in lane (32 - lane) % 32, value 7 - q1
+    # (lane 0: value (8 - q1) % 8)
+    lane = torch.arange(32).reshape(32, 1)
+    q1 = torch.arange(8)
+    val = torch.where(lane == 0, (8 - q1) % 8, 7 - q1)
+    zp = zz.reshape(nfr, 256)[:, ((32 - lane) % 32) * 8 + val]
+    w = tw[lane + 32 * q1]
+    two_x = (zz + zp.conj()) - 1j * w * (zz - zp.conj())
+    p = two_x.real * two_x.real + two_x.imag * two_x.imag
+    return (0.25 * p).transpose(1, 2).reshape(*lead, NBINS)
 
 
 def frequency_scores_fused(batch, cfg) -> torch.Tensor:

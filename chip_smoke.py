@@ -7,7 +7,8 @@ Phases, one line each, stopping at the first failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: compiles ``bliss_tpu_torch/kernels/csrc/fused_all.cu`` (K1, K2,
-   K3) and ``csrc/ablate.cu`` (the measurement kernels A1, A2, A3) for
+   K3; it includes ``csrc/stats.cuh`` and ``csrc/power.cuh``) and
+   ``csrc/ablate.cu`` (the measurement kernels A1, A2, A3) for
    sm_90a from the checkout, one ``nvcc`` each, started together, and
    prints each build's time and each kernel's ptxas registers and spills;
 3. kernel vs plain, each kernel's wrapper against its plain version on the
@@ -15,7 +16,9 @@ Phases, one line each, stopping at the first failure:
    the main-path batch B=64, L=2^23, with the warm median of 5 timings of
    each: K1 ``fused_all_call``; K2 ``fused_stats_call`` (edge batch with
    and without ``halo0``); K3 ``stft_power`` (edge batch with
-   ``frame_offset`` 0, mid-song and past every song's frames);
+   ``frame_offset`` 0, mid-song and past every song's frames), with K3's
+   yardsticks ``torch.matmul`` (a dense DFT) and ``torch.fft.rfft`` of the
+   same frames;
 4. the main path: ``bliss_tpu_torch.api.analyze_pcm`` on the seeded B=64,
    L=2^23 batch, checked finite, launched through K1, and held against the
    same path with the plain version in place of the kernel;
@@ -270,10 +273,11 @@ def ptxas_report(stderr: str) -> str:
     )
 
 
-def k3_library_ms(batch) -> float:
-    """K3's GEMM as one PyTorch call: ``torch.matmul`` of the batch's mono
-    frames [B * L/1024, 512] by the [512, 512] Hann-folded DFT table, warm
-    median of 5 (a yardstick the port never calls)."""
+def k3_library_ms(batch) -> dict:
+    """K3's transform as one PyTorch call on the batch's mono frames [B *
+    L/1024, 512], warm median of 5 each (yardsticks the port never calls):
+    ``torch.matmul`` by the [512, 512] Hann-folded DFT table (a dense DFT,
+    cuBLAS) and ``torch.fft.rfft`` of the Hann-windowed frames (cuFFT)."""
     from bliss_tpu_torch.convert import device_tables
     from bliss_tpu_torch.dsp.intops import c_div
 
@@ -282,8 +286,12 @@ def k3_library_ms(batch) -> float:
     pairs = x.reshape(B, L // 1024, 512, 2).to(torch.int32)
     mono = c_div(pairs[..., 0] + pairs[..., 1], 2).to(torch.float32).reshape(-1, 512)
     del pairs
-    dft = device_tables(1, 17, "firwin", x.device)["dft"]
-    return cuda_ms(lambda: torch.matmul(mono, dft))
+    tabs = device_tables(1, 17, "firwin", x.device)
+    out = {"torch.matmul": cuda_ms(lambda: torch.matmul(mono, tabs["dft"]))}
+    windowed = mono * tabs["hann"]
+    del mono
+    out["torch.fft.rfft"] = cuda_ms(lambda: torch.fft.rfft(windowed, dim=-1))
+    return out
 
 
 def ablation_errors(case, got, ref):
@@ -432,19 +440,20 @@ def main() -> int:
         raise AssertionError(f"main batch shape {tuple(batch.samples.shape)}")
     kernels = check_kernels(batch, "(b) B=64 L=2^23", timed=True, edge=False)
     frames = int(stft.frame_counts(batch.n_samples).clamp(max=MAIN_L // 1024).sum())
-    ntiles = -(-(MAIN_L // 1024) // 64)
     works = {
-        "fused_all": bounds.fused_all_work(MAIN_B, MAIN_L, frames, ntiles),
+        "fused_all": bounds.fused_all_work(MAIN_B, MAIN_L, frames),
         "fused_stats": bounds.stats_work(MAIN_B, MAIN_L),
-        "stft_power": bounds.power_work(frames, MAIN_B, ntiles),
+        "stft_power": bounds.power_work(frames, MAIN_B),
     }
-    library = {"fused_all": None, "fused_stats": None, "stft_power": k3_library_ms(batch)}
+    k3_calls = k3_library_ms(batch)
+    library = {"fused_all": None, "fused_stats": None,
+               "stft_power": k3_calls["torch.matmul"]}
     for name, (_, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
-        lib = library[name]
+        calls = k3_calls if name == "stft_power" else {}
         log(f"{name} B=64 L=2^23 warm median of 5: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), library call "
-            f"{'none' if lib is None else f'{lib:.3f} ms'} {label}")
+            f"{', '.join(f'{c} {t:.3f} ms' for c, t in calls.items()) or 'none'} {label}")
 
     # 4. the main path, through the user's entry point; every count is set
     # to 0 just before each path runs and read just after
@@ -593,7 +602,8 @@ def main() -> int:
     for name, (errs, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
         entries.append({
-            "name": name, "source": "bliss_tpu_torch/kernels/csrc/fused_all.cu",
+            "name": name, "source": "bliss_tpu_torch/kernels/csrc/"
+            + ("power.cuh" if name == "stft_power" else "fused_all.cu"),
             "replaces": {
                 "fused_all": "bliss_tpu/kernels/fused_all.py:52",
                 "fused_stats": "bliss_tpu/kernels/fused_stats.py:71",
@@ -602,6 +612,7 @@ def main() -> int:
             "max_abs_err": max(a for a, _ in errs.values()),
             "errors": {k: {"max_abs": a, "max_rel": r} for k, (a, r) in errs.items()},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            **({"library_calls_ms": k3_calls} if name == "stft_power" else {}),
         })
     ab_replaces = {
         "stats_ablate": "scripts/ablate_fused.py:36",

@@ -9,7 +9,7 @@ import pytest
 from bliss_tpu_torch.kernels import bounds
 
 B, L = 64, 1 << 23  # the main batch
-FRAMES, NTILES = 450_000, 128
+FRAMES = 450_000
 
 
 def test_stats_work_counts_each_sample_once_per_piece():
@@ -25,17 +25,19 @@ def test_stats_work_counts_each_sample_once_per_piece():
 
 
 def test_power_bound_is_the_frame_read_not_a_dense_dft():
-    work = bounds.power_work(FRAMES, B, NTILES)
+    work = bounds.power_work(FRAMES, B)
     assert work["fp32"] == pytest.approx(
         FRAMES * (3 * 512 + 2.5 * 512 * math.log2(512) + 4 * 257))
+    # the frames read once and the [B, 257] float32 output: no table, no scratch
+    assert work["bytes"] == 2048 * FRAMES + 4 * B * 257
     ms, by = bounds.bound_ms(work)
     assert by == "bytes" and ms == pytest.approx(work["bytes"] / 3.35e12 * 1e3)
 
 
 @pytest.mark.parametrize("frames", [0, FRAMES, B * (L // 1024)])
 def test_fused_all_reads_the_pcm_once(frames):
-    k1 = bounds.fused_all_work(B, L, frames, NTILES)
-    k2, k3 = bounds.stats_work(B, L), bounds.power_work(frames, B, NTILES)
+    k1 = bounds.fused_all_work(B, L, frames)
+    k2, k3 = bounds.stats_work(B, L), bounds.power_work(frames, B)
     assert k1["bytes"] == k2["bytes"] + k3["bytes"] - 2048 * frames
     assert k1["fp32"] == k2["fp32"] + k3["fp32"] and k1["fp64"] == k2["fp64"]
     assert bounds.bound_ms(k1)[0] >= max(bounds.bound_ms(k2)[0], bounds.bound_ms(k3)[0]) - 1e-9

@@ -12,7 +12,7 @@ from bliss_tpu_torch.config import AnalysisConfig
 from bliss_tpu_torch.features.analyze import analyze_batch, analyze_batch_hybrid
 from bliss_tpu_torch.features.types import PCMBatch
 from bliss_tpu_torch.ablate import dma, fused as ablate_fused, matred, packread, probe
-from bliss_tpu_torch.kernels import fused_all, fused_stats, stft
+from bliss_tpu_torch.kernels import _build, fused_all, fused_stats, stft
 
 pytestmark = pytest.mark.cuda
 
@@ -100,10 +100,28 @@ def test_fused_stats_kernel_matches_plain(cuda, nb_bands, taps, filterbank, with
         assert ((e1 - pe).abs() / (pe.abs() + 1e-3)).max() < 1e-9
 
 
-@pytest.mark.parametrize("offset", [None, 0, 60, 10_000], ids=["none", "0", "mid", "past"])
-def test_stft_power_kernel_matches_plain(cuda, offset):
-    songs, durs = _songs()
-    batch = PCMBatch.from_arrays(songs, durs, device=cuda)
+def _ragged_songs():
+    """Frame counts off the kernel's tile: 257 frames and 1000 samples, none
+    (700 samples) and 129 frames."""
+    rng = np.random.RandomState(9)
+    lens = (257 * 1024 + 1000, 700, 129 * 1024)
+    return [rng.randint(-32768, 32768, size=n).astype(np.int16) for n in lens], [12, 1, 6]
+
+
+# id -> (songs, frame_offset)
+POWER_CASES = {
+    "none": (_songs, None), "0": (_songs, 0), "mid": (_songs, 60),
+    "past": (_songs, 10_000), "ragged": (_ragged_songs, None),
+}
+
+
+@pytest.mark.parametrize("case", list(POWER_CASES))
+def test_stft_power_kernel_matches_plain(cuda, case):
+    make_songs, offset = POWER_CASES[case]
+    batch = PCMBatch.from_arrays(*make_songs(), device=cuda)
+    if case == "ragged":
+        tile = _build.library("fused_all").bliss_power_tile()
+        assert 257 % tile and 129 % tile
     before = _counters()
     got = stft.stft_power(batch.samples, batch.n_samples, frame_offset=offset)
     torch.cuda.synchronize()
@@ -113,7 +131,9 @@ def test_stft_power_kernel_matches_plain(cuda, offset):
         assert (got == 0).all() and (ref == 0).all()
         return
     peak = ref.amax(dim=1, keepdim=True)
-    assert ((got - ref).abs() / peak).max() < 1e-5
+    silent = peak[:, 0] == 0  # no frame counts: exactly zero
+    assert (got[silent] == 0).all() and silent.sum() == (case == "ragged")
+    assert ((got - ref).abs()[~silent] / peak[~silent]).max() < 1e-5
 
 
 def test_two_kernel_and_hybrid_on_gpu_match_cpu(cuda):

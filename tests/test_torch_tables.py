@@ -22,7 +22,7 @@ from bliss_tpu_torch.convert import (
     reference_arrays,
     tables_from_numpy,
 )
-from bliss_tpu_torch.kernels.stft import hann_dft_table
+from bliss_tpu_torch.kernels.stft import fft_twiddles, hann_dft_table
 
 torch.set_num_threads(1)
 
@@ -180,6 +180,8 @@ def test_tables_from_numpy_takes_the_reference_tables():
         "fir": jtables.bandpass_filterbank(1, 17, "firwin"),
         "warm": jtables.fir_warmup_correction(1, 17, "firwin"),
         "dft": hann_dft_table(),
+        "twiddle": fft_twiddles(),
+        "hann": jtables.hann_window(),
         "iir_L": L, "iir_Z": Z, "iir_M": M, "iir_N": N,
     }
     got = tables_from_numpy(ref, "cpu")
