@@ -23,5 +23,10 @@ def wrapping_sum_int32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     sum is reduced mod 2**32 here. Exact while the true sum fits int64,
     which holds for any int16 input below 2**48 samples.
     """
-    s = torch.sum(x, dim=dim, dtype=torch.int64)
+    return wrap_int32(torch.sum(x, dim=dim, dtype=torch.int64))
+
+
+def wrap_int32(s: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of the exact int64 ``s`` as a signed int32: what a C
+    ``int`` accumulator holds after summing to ``s``."""
     return (torch.remainder(s + 2**31, 2**32) - 2**31).to(torch.int32)

@@ -7,8 +7,8 @@ and the compiler flags, so an edited source rebuilds. Nothing is built when
 a module is imported, and a missing ``nvcc`` or a failed build raises.
 
 ``library(name)`` binds the entry points of ``csrc/<name>.cu``:
-``fused_all`` (K1, K2 and K3) and ``ablate`` (the measurement kernels A1,
-A2 and A3 of ``bliss_tpu_torch.ablate``). ``launch`` calls one entry point
+``fused_all`` (K1, K2, K3 and the prepass) and ``ablate`` (the measurement
+kernels A1, A2 and A3 of ``bliss_tpu_torch.ablate``). ``launch`` calls one entry point
 on the tensor's current stream and raises if the launch failed.
 ``build(names)`` compiles several sources at once, one ``nvcc`` each.
 """
@@ -121,6 +121,7 @@ _SIGNATURES = {
         "bliss_stft_power": _POWER + [_VP],
         "bliss_fused_all": _STATS + [_VP, _VP, _VP, _VP, _I, _VP],
         "bliss_power_tile": [],
+        "bliss_prepass": [_VP, _I, _I, _VP, _VP, _I, _VP],
     },
     "ablate": {
         "bliss_stats_ablate": [_I] + _STATS + [_VP],

@@ -76,6 +76,13 @@ def stats_work(
     return work
 
 
+def prepass_work(B: int, L: int) -> dict:
+    """``prepass_kernel``: reads int16 [B, L] once and writes two int64
+    sums a song. Its integer adds and products are not on the floating-point
+    pipes, so the bytes bound it."""
+    return {"bytes": 2 * B * L + 16 * B}
+
+
 def power_work(frames: int, B: int) -> dict:
     """``power_kernel`` (K3, K1's second launch) over ``frames`` 512-sample
     stereo frames that count: reads them (2048 bytes each) and writes the

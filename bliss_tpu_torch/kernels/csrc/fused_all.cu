@@ -49,6 +49,7 @@
 //    step. Each block writes one row of 256 partial sums, which the wrapper
 //    adds in a fixed order.
 
+#include "prepass.cuh"
 #include "stats.cuh"
 #include "power.cuh"
 
@@ -103,6 +104,14 @@ int bliss_fused_all(const void* x, int B, int L, const void* alpha,
     rc = launch_power(x, B, L, n_frames, nullptr, twiddle, hann, part, ntiles,
                       stream);
   return rc;
+}
+
+// The prepass: exact int64 sums of s and s^2 over each song's first
+// n_samples[b] samples. x int16 [B, L], 16-byte aligned, L a multiple of 8;
+// n_samples: int [B]; part: int64 [B, chunks, 2], rows (sum s, sum s^2).
+int bliss_prepass(const void* x, int B, int L, const void* n_samples,
+                  void* part, int chunks, void* stream) {
+  return launch_prepass(x, B, L, n_samples, part, chunks, stream);
 }
 
 }  // extern "C"

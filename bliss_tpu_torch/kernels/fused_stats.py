@@ -33,13 +33,15 @@ import torch.nn.functional as F
 from bliss_tpu_torch import constants as C
 from bliss_tpu_torch import tables
 from bliss_tpu_torch.convert import device_tables
-from bliss_tpu_torch.dsp.intops import c_div, wrapping_sum_int32
+from bliss_tpu_torch.dsp.intops import c_div, wrap_int32
 
 BLK = C.TEMPO_HOP  # 256
 NSTAT = 9  # (sum v, sum v^2, sum (-1)^t v) x (tail, head, reset) per band and block
 
-# Launches of the CUDA kernel: one per fused_stats_call on a CUDA tensor.
+# Launches of the CUDA kernels on CUDA tensors: stats_kernel, one per
+# fused_stats_call; prepass_kernel, one per prepass_sums.
 LAUNCHES = 0
+PREPASS_LAUNCHES = 0
 
 
 def cheb_T(m: torch.Tensor, coeffs, halfwidth: float) -> torch.Tensor:
@@ -278,19 +280,96 @@ def assemble_energies(stats: torch.Tensor) -> torch.Tensor:
     return (C.WINDOW_SIZE / 2) * sum_y2 + (sum_y * sum_y + sum_a * sum_a) / 2.0
 
 
+def check_prepass_inputs(samples, n_samples):
+    """Raises ValueError unless ``samples`` is int16 [B, L] and
+    ``n_samples`` an integer [B] on the same device."""
+    if samples.dtype != torch.int16 or samples.dim() != 2 or samples.shape[0] < 1:
+        raise ValueError(
+            f"samples must be int16 [B, L], got {samples.dtype} {tuple(samples.shape)}"
+        )
+    if (n_samples.dtype.is_floating_point or n_samples.dtype == torch.bool
+            or tuple(n_samples.shape) != samples.shape[:1]):
+        raise ValueError(
+            f"n_samples must be an integer [{samples.shape[0]}], got "
+            f"{n_samples.dtype} {tuple(n_samples.shape)}"
+        )
+    if n_samples.device != samples.device:
+        raise ValueError(f"n_samples is on {n_samples.device}, samples on {samples.device}")
+
+
+def prepass_chunks(L: int) -> int:
+    """Blocks of the prepass kernel per song: one per 2^18 samples."""
+    return max(1, min(1024, L >> 18))
+
+
+def prepass_sums(samples: torch.Tensor, n_samples: torch.Tensor):
+    """(sum s, sum s^2), each int64 [B]: exact sums over each song's valid
+    samples i < n_samples[b]. On a CUDA tensor it launches
+    ``prepass_kernel`` (``csrc/prepass.cuh``; L a multiple of 8, the
+    samples 16-byte aligned) and adds its per-block partials; on a CPU
+    tensor it runs ``prepass_sums_reference``."""
+    check_prepass_inputs(samples, n_samples)
+    if samples.device.type == "cpu":
+        return prepass_sums_reference(samples, n_samples)
+    if samples.device.type != "cuda":
+        raise ValueError(f"no kernel for device {samples.device}")
+    B, L = samples.shape
+    if L % 8 or not samples.is_contiguous() or samples.data_ptr() % 16:
+        raise ValueError("samples must be contiguous, 16-byte aligned, L a multiple of 8")
+    from bliss_tpu_torch.kernels import _build
+
+    global PREPASS_LAUNCHES
+    n32 = n_samples.to(torch.int32).contiguous()
+    chunks = prepass_chunks(L)
+    part = torch.empty(B, chunks, 2, dtype=torch.int64, device=samples.device)
+    _build.launch("fused_all", "bliss_prepass", samples.device, samples.data_ptr(), B, L,
+                  n32.data_ptr(), part.data_ptr(), chunks)
+    PREPASS_LAUNCHES += 1
+    sums = part.sum(dim=1)
+    return sums[:, 0], sums[:, 1]
+
+
+def prepass_sums_reference(samples: torch.Tensor, n_samples: torch.Tensor):
+    """Plain PyTorch version of ``prepass_sums``: int64 sums of the masked
+    samples and of their int32 squares, a few songs at a time so that the
+    temporaries stay near 2^24 elements."""
+    check_prepass_inputs(samples, n_samples)
+    B, L = samples.shape
+    n = n_samples.to(torch.int64)
+    idx = torch.arange(L, device=samples.device)
+    rows = max(1, (1 << 24) // L)
+    s1, s2 = [], []
+    for b0 in range(0, B, rows):
+        x = samples[b0 : b0 + rows].to(torch.int32)
+        x = torch.where(idx[None, :] < n[b0 : b0 + rows, None], x, 0)
+        s1.append(x.sum(dim=1, dtype=torch.int64))
+        s2.append((x * x).sum(dim=1, dtype=torch.int64))
+        del x
+    return torch.cat(s1), torch.cat(s2)
+
+
+def mean_variance(samples: torch.Tensor, n_samples: torch.Tensor):
+    """(mean int32 [B], var int64 [B]) as the C reference computes them
+    (src/helpers.c bl_mean, bl_variance): the mean a wrapping int32 sum
+    divided like C, the variance sum (s - mean)^2 divided like C, exact.
+    Both come from the exact sums of s and s^2: the wrapped sum is their low
+    32 bits, and sum (s - mean)^2 = sum s^2 - 2 mean sum s + n mean^2, each
+    term below 2^56."""
+    sum_s, sum_s2 = prepass_sums(samples, n_samples)
+    mean = c_div(wrap_int32(sum_s), n_samples)
+    m = mean.to(torch.int64)
+    n = n_samples.to(torch.int64)
+    return mean, c_div(sum_s2 - 2 * m * sum_s + n * m * m, n)
+
+
 def normalization(samples: torch.Tensor, n_samples: torch.Tensor):
     """The integer mean/variance prepass: (alpha, beta, mean) with alpha,
     beta float32 [B] and xn = alpha*s + beta the zero-mean, divided-by-
-    variance signal (reference: src/tempo_atk_sort.c:101-114). The mean is
-    a wrapping int32 sum divided like C; the variance is a float32 sum,
-    truncated."""
-    B, L = samples.shape
-    s32 = samples.to(torch.int32)
-    valid = torch.arange(L, device=samples.device)[None, :] < n_samples[:, None]
-    mean = c_div(wrapping_sum_int32(torch.where(valid, s32, 0), dim=1), n_samples)
-    d = torch.where(valid, s32 - mean[:, None], 0).to(torch.float32)
-    del s32, valid
-    var = torch.trunc(torch.sum(d * d, dim=1) / n_samples.to(torch.float32))
+    variance signal (reference: src/tempo_atk_sort.c:101-114), from
+    ``mean_variance``'s exact integers. A silent song (var = 0) gives
+    infinite alpha and NaN or infinite beta."""
+    mean, var = mean_variance(samples, n_samples)
+    var = var.to(torch.float32)
     inv = 1.0 / (1 << 15)
     alpha = inv / (var * inv * inv)
     beta = -(mean.to(torch.float32) * inv) / (var * inv * inv)

@@ -47,3 +47,12 @@ def test_matred_work_is_the_stats_function_in_its_layout():
     a3, k2 = bounds.matred_work(B, L), bounds.stats_work(B, L)
     assert a3["fp64"] == k2["fp64"] and a3["fp32"] == k2["fp32"]
     assert a3["bytes"] == 2 * B * L + 64 * B * (L // 256)
+
+
+def test_prepass_bound_is_one_read():
+    """The prepass reads the int16 PCM once and writes two int64 sums a
+    song; its integer arithmetic is on no floating-point pipe."""
+    work = bounds.prepass_work(B, L)
+    assert work == {"bytes": 2 * B * L + 16 * B}
+    ms, by = bounds.bound_ms(work)
+    assert by == "bytes" and ms == pytest.approx(0.3205, abs=1e-4)
