@@ -5,19 +5,21 @@
 //
 //   A1 bliss_stats_ablate: stats_kernel with stages switched off
 //      (scripts/ablate_fused.py make_kernel, run_variant);
-//   A2 bliss_probe: read-and-reduce probes with stats_kernel's launch
-//      geometry (scripts/ablate_fused.py run_variant2's bodies,
-//      scripts/ablate_dma.py, scripts/ablate_packread.py);
+//   A2 bliss_probe: read-and-reduce probes with the launch geometry of
+//      stats_kernel's first port (scripts/ablate_fused.py run_variant2's
+//      bodies, scripts/ablate_dma.py, scripts/ablate_packread.py);
 //   A3 bliss_matred_stats: the statistics with every reduction done as an
 //      fp64 tensor-core product by selector matrices
 //      (scripts/proto_matred.py make_proto, proto_call).
 //
 // What bounds them on this card: A1 is stats_kernel itself (fp64
-// arithmetic on the CUDA cores, 34 TFLOP/s peak, over 2 bytes a sample).
-// A2 reads one element a thread per 256-wide row and sums it with
-// block_sums, as stats_kernel does, so its time at full width is that
-// kernel's floor for the read plus its per-row barriers; with 1 to 6 adds
-// an element it is bound by the bytes. A3 moves the block reductions from
+// arithmetic on the CUDA cores, 34 TFLOP/s peak, over 2 bytes a sample),
+// one warp a hop block. A2 keeps the geometry stats_kernel had before it
+// became one warp a hop block: a 256-thread block walks 8 hop blocks, one
+// element a thread, and sums each 256-wide row with block_sums (two block
+// barriers a row); at full width its time is that geometry's floor for the
+// read plus its per-row barriers, and with 1 to 6 adds an element it is
+// bound by the bytes. A3 moves the block reductions of that geometry from
 // warp shuffles and barriers to mma.sync m8n8k4 f64 (67 TFLOP/s fp64
 // tensor-core peak), most of whose products are by the selectors' zeros.
 
@@ -26,6 +28,54 @@
 #include "stats.cuh"
 
 namespace {
+
+// ---- the geometry and reductions of A2 and A3 ------------------------------
+// (stats_kernel's before it became one warp a hop block; kept as they were
+// so that the probes and A3 measure what they measured)
+
+constexpr int BLK = 256;            // tempo hop: threads per stats block
+constexpr int NWARP = BLK / 32;
+constexpr int BLOCKS_PER_CTA = 8;   // hop blocks each stats block walks
+
+// Sums v[i] over the 256 threads of the block and stores total i at
+// out[i * stride]. Fixed order, so results do not vary run to run. Ends with
+// a barrier, so shared memory read before the call may be rewritten after.
+template <typename T, int N>
+__device__ __forceinline__ void block_sums(const T (&v)[N], T (*red)[NWARP],
+                                           T* out, size_t stride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const T s = warp_sum(v[i]);
+    if (lane == 0) red[i][warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    T s = 0;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) s += red[threadIdx.x][w];
+    out[threadIdx.x * stride] = s;
+  }
+  __syncthreads();
+}
+
+// Smoothing-kernel CDF: Chebyshev series of the positive half, folded by
+// symmetry (bliss_tpu/kernels/fused_stats.py::_cheb_T).
+__device__ __forceinline__ float cheb_T(float m, const float* c, int n,
+                                        float hw) {
+  const bool neg = m < 0.f;
+  const float mf = neg ? -m - 1.f : m;
+  const float t = fminf(fmaxf((2.f * mf - hw) / hw, -1.f), 1.f);
+  float b1 = 0.f, b2 = 0.f;
+  for (int k = n - 1; k >= 1; --k) {
+    const float nb1 = c[k] + 2.f * t * b1 - b2;
+    b2 = b1;
+    b1 = nb1;
+  }
+  float val = c[0] + t * b1 - b2;
+  if (mf >= hw) val = 1.f;
+  return neg ? 1.f - val : val;
+}
 
 // ---- A2: read and reduce probes -------------------------------------------
 

@@ -1,7 +1,8 @@
 // Sample statistics and summed power spectrum of an int16 PCM batch,
 // hand-written for Hopper (sm_90a), bound through a plain C interface.
 //
-// Replaces three TPU kernels with two CUDA kernels and three entry points:
+// Replaces three TPU kernels with two CUDA kernels and three entry points,
+// and runs the prepass that feeds them (a fourth entry point):
 //
 //   K1 bliss_tpu/kernels/fused_all.py:52 _kernel (fused_all_call)
 //      -> bliss_fused_all: stats_kernel, then power_kernel;
@@ -31,7 +32,15 @@
 //    256-sample hop block the amplitude weight sum, an any-nonzero flag and
 //    per band the fp64 sums of the FIR's tail, head and window-reset pieces.
 //    Its ~42 fp64 FLOP a sample bound it on the fp64 CUDA cores (34 TFLOP/s
-//    peak), not on its 2-byte read (kernels/bounds.py).
+//    peak), not on its 2-byte read (kernels/bounds.py). One warp takes a
+//    hop block at a time, 8 samples a lane read as one 16-byte word, and
+//    walks a run of consecutive blocks with the FIR's history carried in a
+//    warp-private ring; the FIR runs in registers on a sliding window, the
+//    sums by shuffles, and no block barrier sits in its loop.
+//  * prepass_kernel (csrc/prepass.cuh): the exact int64 sums of s and s^2
+//    over each song's valid samples, from which the wrappers form the C
+//    reference's integer mean and variance; one read of the PCM in 16-byte
+//    words, so the bytes bound it.
 //  * power_kernel (csrc/power.cuh): the Hann-windowed power spectrum of
 //    mono = c_div(l + r, 2), bins 0..255, summed over the frames that count
 //    (local frame f counts while offset + f < n_frames, offset the song's

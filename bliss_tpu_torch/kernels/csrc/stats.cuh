@@ -1,23 +1,55 @@
 // The sample-statistics kernel, shared by csrc/fused_all.cu (K1, K2) and
-// csrc/ablate.cu (its stage ablation and the reductions it is built from).
+// csrc/ablate.cu (its stage ablation A1).
 //
-// stats_kernel, grid (hop-block ranges, songs), 256 threads = one 256-sample
-// hop block at a time. It stages the block's samples, normalized
-// (xn = alpha*s + beta), behind a (taps-1)-sample history in shared memory.
-// The history before sample 0 is alpha*halo0 + beta when the caller passes
-// halo0 [B, taps-1] (a sequence shard's view of the previous shard's tail),
-// else normalized zero. Per hop block it writes the amplitude weight sum
-// sum T(1000 - |s+1|) (Clenshaw series of the smoothing CDF) and an
-// any-nonzero flag, and per band the sums (of v, v^2 and (-1)^t v) of three
-// pieces of the causal FIR: z over the block's tail t >= K (K = taps-1), z
-// over its head t < K, and over the head the window-reset FIR y = z + delta,
+// What it computes. Per 256-sample hop block of int16 [B, L]: the
+// amplitude weight sum sum T(1000 - |s+1|) (Clenshaw series of the
+// smoothing CDF), an any-nonzero flag and, per band, the sums (of v, v^2
+// and (-1)^t v) of three pieces of the causal FIR of the normalized signal
+// xn = alpha*s + beta: z over the block's tail t >= K (K = taps-1), z over
+// its head t < K, and over the head the window-reset FIR y = z + delta,
 // delta = M h (M the band's fir_warmup_correction, h the K samples before
-// the block, halo0's for block 0). A window is blocks (w, w+1) with its FIR
-// reset at w's start, so its sums are reset(w) + tail(w) + head(w+1) +
+// the block). The history before sample 0 is alpha*halo0 + beta when the
+// caller passes halo0 [B, taps-1] (a sequence shard's view of the previous
+// shard's tail), else normalized zero. A window is blocks (w, w+1) with its
+// FIR reset at w's start, so its sums are reset(w) + tail(w) + head(w+1) +
 // tail(w+1): no term cancels another. (The TPU kernel sums z over whole
 // blocks and adds delta corrections, which cancels the history's share of
 // z^2 and leaves float32 noise relative to the loud history in windows that
 // start just after a loud-to-silence edge.)
+//
+// What bounds it: ~42 fp64 FLOP a sample (the 17-tap FIR, the sums, the
+// correction) on the fp64 CUDA cores, against 2 bytes read
+// (kernels/bounds.py stats_work, which also counts the Clenshaw weight's
+// ~70 fp32 FLOP a sample that the table below saves).
+//
+// The design: one warp a hop block, 8 consecutive samples a lane, and no
+// block barrier in the hop-block loop. stats_kernel, grid (runs of
+// SWARPS * RUN hop blocks, songs), SWARPS warps a block; each warp walks
+// its own run of RUN consecutive hop blocks:
+//   - lane l reads samples 8l .. 8l+7 of the block with one 16-byte load
+//     (the next block's load is issued before this block's arithmetic);
+//   - the amplitude weight depends on the integer mf = |1000 - |s+1|| (or
+//     that minus 1) only while mf < halfwidth, so each block evaluates the
+//     Clenshaw series once for each such mf into a table (ceil(halfwidth)
+//     values, 200 for the shipped fit) and the samples read it;
+//   - the normalized samples go into a warp-private ring in shared memory
+//     behind the K before them: the previous block's last K, carried in the
+//     ring, or at the run's first block the K samples before it, read once
+//     (so the PCM is read once plus K samples a run). One pad element every
+//     8 keeps the lanes' stride-8 accesses on distinct banks;
+//   - the FIR runs in registers on a sliding window of 8 samples a lane,
+//     one ring read and 8 FMAs a tap;
+//   - the sums run in registers over the lane's 8 samples, then over the
+//     warp by shuffles: the tail's 3 over 32 lanes, the head's and reset's
+//     6 only over the ceil(K/8) lanes that hold t < K, wsum over 32 lanes,
+//     rownz by __any_sync; always in the same order;
+//   - delta's K x K MACs are shared by the 32 lanes (G lanes a row of M, G
+//     the largest power of two with G*K <= 32), combined by shuffles and
+//     handed to the head lanes through a warp-private row of K values;
+//   - fir and M are staged in shared memory once a block where they fit,
+//     M's rows padded to K+1, else read from global memory.
+// Only __syncwarp orders the warp-private shared memory; the one block
+// barrier publishes the staged tables before the loop.
 //
 // Its template switches are the stages of the stage ablation (ablate.cu);
 // the shipped kernel is stats_kernel<true, true, true, double>:
@@ -25,6 +57,8 @@
 //   CONV  the causal FIR; off: z = xn;
 //   WARM  the window-reset correction delta; off: delta = 0 (y = z);
 //   FirT  the type of the FIR, the correction and their sums.
+// kernels/fused_stats.stats_lane_steps runs the same lanes, windows,
+// shuffle orders and delta split in PyTorch: change both together.
 
 #pragma once
 
@@ -33,12 +67,19 @@
 
 namespace {
 
-constexpr int BLK = 256;            // tempo hop: threads per stats block
-constexpr int NWARP = BLK / 32;
-constexpr int BLOCKS_PER_CTA = 8;   // hop blocks each stats block walks
-constexpr int MAX_K = 128;          // taps - 1
+constexpr int HOP = 256;           // tempo hop: samples a hop block, 8 a lane
+constexpr int SWARPS = 4;          // warps a stats block
+constexpr int RUN = 8;             // consecutive hop blocks a warp walks
+constexpr int MAX_K = 128;         // taps - 1
 constexpr int MAX_CHEB = 32;
-constexpr int NSTAT = 9;            // (v, v^2, alt) x (tail, head, reset)
+constexpr int MAX_WTAB = 1024;     // ceil(halfwidth) of the smoothing CDF
+constexpr int NSTAT = 9;           // (v, v^2, alt) x (tail, head, reset)
+constexpr int RING = 512;          // ring of normalized samples, >= HOP + MAX_K
+constexpr int ROWS = RING / 8;     // ring rows of 8 samples, each padded to 9
+constexpr int RING_PHYS = 9 * ROWS;
+constexpr int WARP_SMEM = RING_PHYS + MAX_K;    // ring, then delta's row
+constexpr int TABLE_SMEM_MAX = 64 * 1024;       // staged fir and M, bytes
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -50,135 +91,272 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
-// Sums v[i] over the 256 threads of the block and stores total i at
-// out[i * stride]. Fixed order, so results do not vary run to run. Ends with
-// a barrier, so shared memory read before the call may be rewritten after.
-template <typename T, int N>
-__device__ __forceinline__ void block_sums(const T (&v)[N], T (*red)[NWARP],
-                                           T* out, size_t stride) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const T s = warp_sum(v[i]);
-    if (lane == 0) red[i][warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    T s = 0;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) s += red[threadIdx.x][w];
-    out[threadIdx.x * stride] = s;
-  }
-  __syncthreads();
+// physical index of ring element i (any int; the ring wraps at RING)
+__device__ __forceinline__ int ring_at(int i) {
+  return 9 * ((i >> 3) & (ROWS - 1)) + (i & 7);
 }
 
-// Smoothing-kernel CDF: Chebyshev series of the positive half, folded by
-// symmetry (bliss_tpu/kernels/fused_stats.py::_cheb_T).
-__device__ __forceinline__ float cheb_T(float m, const float* c, int n,
-                                        float hw) {
-  const bool neg = m < 0.f;
-  const float mf = neg ? -m - 1.f : m;
+// The positive half of the smoothing-kernel CDF at mf in [0, hw): its
+// Chebyshev series by Clenshaw (bliss_tpu/kernels/fused_stats.py::_cheb_T).
+__device__ __forceinline__ float cheb_half(float mf, const float* __restrict__ c,
+                                           int n, float hw) {
   const float t = fminf(fmaxf((2.f * mf - hw) / hw, -1.f), 1.f);
   float b1 = 0.f, b2 = 0.f;
   for (int k = n - 1; k >= 1; --k) {
-    const float nb1 = c[k] + 2.f * t * b1 - b2;
+    const float nb1 = __ldg(c + k) + 2.f * t * b1 - b2;
     b2 = b1;
     b1 = nb1;
   }
-  float val = c[0] + t * b1 - b2;
-  if (mf >= hw) val = 1.f;
+  return __ldg(c) + t * b1 - b2;
+}
+
+// The amplitude weight T(1000 - |s+1|) of an int16 sample s: the CDF
+// folded by symmetry, 1 from mf >= hw on. mf is an integer, so the series
+// is read from wtab, its values at mf = 0 .. nw-1 (nw = ceil(hw)).
+__device__ __forceinline__ float cheb_weight(float s, const float* wtab, int nw) {
+  const float m = 1000.f - fabsf(s + 1.f);
+  const bool neg = m < 0.f;
+  const int mf = (int)(neg ? -m - 1.f : m);
+  const float val = mf < nw ? wtab[mf] : 1.f;
   return neg ? 1.f - val : val;
 }
 
 template <bool CHEB, bool CONV, bool WARM, typename FirT>
-__global__ void __launch_bounds__(BLK) stats_kernel(
+__global__ void __launch_bounds__(SWARPS * 32, 4) stats_kernel(
     const int16_t* __restrict__ x, int L, int nbf,
     const float* __restrict__ alpha, const float* __restrict__ beta,
     const int16_t* __restrict__ halo0, const float* __restrict__ cheb,
     int ncheb, float halfwidth, const FirT* __restrict__ fir,
-    const FirT* __restrict__ warm, int nb, int taps,
+    const FirT* __restrict__ warm, int nb, int taps, int staged,
     float* __restrict__ wsum, float* __restrict__ rownz,
     FirT* __restrict__ stats) {
-  __shared__ FirT ext[MAX_K + BLK];  // [history | block], normalized
-  __shared__ float cs[MAX_CHEB];
-  __shared__ float redf[1][NWARP];
-  __shared__ FirT redd[NSTAT][NWARP];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float wtab[MAX_WTAB];
+  FirT* const smem = reinterpret_cast<FirT*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, K = taps - 1;
 
-  const int b = blockIdx.y, t = threadIdx.x, K = taps - 1;
-  if (t < ncheb) cs[t] = cheb[t];
+  // fir [nb, taps] and M [nb, K, K], staged with M's rows padded to K+1
+  const FirT* firt = fir;
+  const FirT* Mt = warm;
+  int mstride = K;
+  if (staged) {
+    FirT* tab = smem + SWARPS * WARP_SMEM;
+    const int nf = nb * taps;
+    for (int i = threadIdx.x; i < nf; i += blockDim.x) tab[i] = fir[i];
+    if (WARM)
+      for (int i = threadIdx.x; i < nb * K * K; i += blockDim.x)
+        tab[nf + i + i / K] = warm[i];  // row r = i / K lands at r * (K+1)
+    firt = tab;
+    Mt = tab + nf;
+    mstride = K + 1;
+  }
+  const int nw = (int)ceilf(halfwidth);
+  if (CHEB)
+    for (int i = threadIdx.x; i < nw; i += blockDim.x)
+      wtab[i] = cheb_half((float)i, cheb, ncheb, halfwidth);
+  __syncthreads();  // the tables; no block barrier after this one
+
+  const int blk0 = (blockIdx.x * SWARPS + warp) * RUN;
+  if (blk0 >= nbf) return;
+  const int blk1 = min(blk0 + RUN, nbf);
+  FirT* const ring = smem + warp * WARP_SMEM;
+  FirT* const drow = ring + RING_PHYS;  // delta of the head, t < K
   const FirT a = alpha[b], be = beta[b];
   const int16_t* xb = x + (size_t)b * L;
-  const int16_t* hb = halo0 ? halo0 + (size_t)b * K : nullptr;
-  const int blk0 = blockIdx.x * BLOCKS_PER_CTA;
-  const int blk1 = min(blk0 + BLOCKS_PER_CTA, nbf);
-  const FirT sign = (t & 1) ? FirT(-1) : FirT(1);  // (-1)^t; blocks start even
-  __syncthreads();
+  const int4* xw4 = reinterpret_cast<const int4*>(xb);
 
-  for (int blk = blk0; blk < blk1; ++blk) {
-    const long i0 = (long)blk * BLK;
-    const float s = (float)xb[i0 + t];
-    if (t < K) {
-      const long h = i0 - K + t;
-      // before sample 0: halo0's raw samples, else normalized zero
-      ext[t] = h >= 0 ? fma_t(a, (FirT)xb[h], be)
-                      : (hb ? fma_t(a, (FirT)hb[h + K], be) : FirT(0));
-    }
-    ext[K + t] = fma_t(a, (FirT)s, be);
-    const float w = CHEB ? cheb_T(1000.f - fabsf(s + 1.f), cs, ncheb, halfwidth) : s;
-    const int nz = __syncthreads_or(s != 0.f);  // also publishes ext
-    if (t == 0) rownz[(size_t)b * nbf + blk] = nz ? 1.f : 0.f;
+  // the run's history: the K samples before its first block, normalized
+  int base = MAX_K;  // ring index of the current block's sample 0
+  for (int k = lane; k < K; k += 32) {
+    const long h = (long)blk0 * HOP - K + k;
+    ring[ring_at(base - K + k)] =
+        h >= 0 ? fma_t(a, (FirT)xb[h], be)
+               : (halo0 ? fma_t(a, (FirT)halo0[(size_t)b * K + h + K], be) : FirT(0));
+  }
+
+  const int H = (K + 7) >> 3;  // lanes holding head samples
+  int H2 = 1;                  // H rounded up to a power of two
+  while (H2 < H) H2 <<= 1;
+  int G = 1;                   // lanes sharing a row of M
+  while (2 * G * K <= 32) G <<= 1;
+  const int g = lane & (G - 1);
+  const int kc = (K + G - 1) / G;  // each lane's run of k in a row
+  const int k0 = min(g * kc, K), k1 = min(k0 + kc, K);
+  const int rstep = 32 / G, nrow = (K + rstep - 1) / rstep;
+  const FirT alt[2] = {FirT(1), FirT(-1)};  // (-1)^t, t = 8 lane + j
+
+  int4 nxt = __ldg(xw4 + (size_t)blk0 * (HOP / 8) + lane);
+  for (int blk = blk0; blk < blk1; ++blk, base += HOP) {
+    const int4 cur = nxt;
+    if (blk + 1 < blk1) nxt = __ldg(xw4 + (size_t)(blk + 1) * (HOP / 8) + lane);
+    float s[8];
     {
-      const float v[1] = {w};
-      block_sums<float, 1>(v, redf, wsum + (size_t)b * nbf + blk, 0);
+      const int words[4] = {cur.x, cur.y, cur.z, cur.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s[2 * q] = (float)((int)((unsigned)words[q] << 16) >> 16);
+        s[2 * q + 1] = (float)(words[q] >> 16);
+      }
     }
+    bool nz = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) nz |= s[j] != 0.f;
+    const bool nonzero = __any_sync(FULL, nz);
+    float ws = CHEB ? cheb_weight(s[0], wtab, nw) : s[0];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) ws += CHEB ? cheb_weight(s[j], wtab, nw) : s[j];
+    ws = warp_sum(ws);
+    if (lane == 0) {
+      rownz[(size_t)b * nbf + blk] = nonzero ? 1.f : 0.f;
+      wsum[(size_t)b * nbf + blk] = ws;
+    }
+
+    FirT xn[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xn[j] = fma_t(a, (FirT)s[j], be);
+    __syncwarp();  // every lane is done reading the previous block's ring
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ring[ring_at(base + 8 * lane) + j] = xn[j];
+    __syncwarp();
+
     for (int band = 0; band < nb; ++band) {
-      FirT z = ext[K + t];
+      FirT z[8];
       if (CONV) {
-        const FirT* c = fir + (size_t)band * taps;
-        z = FirT(0);
-        for (int m = 0; m < taps; ++m) z = fma_t(__ldg(c + m), ext[K + t - m], z);
+        // z[j] = sum_m fir[m] xn[8 lane + j - m], window v[j] = xn[8 lane + j - m]
+        const FirT* f = firt + (size_t)band * taps;
+        FirT v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          v[j] = xn[j];
+          z[j] = FirT(0);
+        }
+        // taps m = 8a .. 8a+7 read ring row q0 - a backwards: one address a
+        // row, and after 8 shifts each v[j] is back in its register
+        const int q0 = (base >> 3) + lane - 1;
+        int m = 0;
+        for (int a = 0; m + 8 <= taps; ++a, m += 8) {
+          const FirT* row = ring + 9 * ((q0 - a) & (ROWS - 1));
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const FirT fm = f[m + r];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) z[j] = fma_t(fm, v[j], z[j]);
+#pragma unroll
+            for (int j = 7; j > 0; --j) v[j] = v[j - 1];
+            v[0] = row[7 - r];
+          }
+        }
+        for (; m < taps; ++m) {
+          const FirT fm = f[m];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) z[j] = fma_t(fm, v[j], z[j]);
+#pragma unroll
+          for (int j = 7; j > 0; --j) v[j] = v[j - 1];
+          v[0] = ring[ring_at(base + 8 * lane - m - 1)];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) z[j] = xn[j];
       }
-      const bool head = t < K;
-      FirT y = z;  // the window-reset FIR
-      if (WARM && head) {
-        const FirT* M = warm + ((size_t)band * K + t) * K;
-        FirT delta = FirT(0);
-        for (int k = 0; k < K; ++k) delta = fma_t(__ldg(M + k), ext[k], delta);
-        y = z + delta;
+
+      FirT tl[3] = {FirT(0), FirT(0), FirT(0)};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * lane + j >= K) {
+          tl[0] += z[j];
+          tl[1] = fma_t(z[j], z[j], tl[1]);
+          tl[2] = fma_t(alt[j & 1], z[j], tl[2]);
+        }
       }
-      const FirT zt = head ? FirT(0) : z, zh = head ? z : FirT(0),
-                 yh = head ? y : FirT(0);
-      const FirT v[NSTAT] = {zt, zt * zt, sign * zt,
-                             zh, zh * zh, sign * zh,
-                             yh, yh * yh, sign * yh};
-      block_sums<FirT, NSTAT>(
-          v, redd, stats + ((size_t)(b * nb + band) * NSTAT) * nbf + blk,
-          (size_t)nbf);
+
+      if (WARM) {
+        // delta[t] = sum_k M[t][k] h[k], h[k] = ring[base - K + k]: lane
+        // (t mod rstep) * G + g sums k in [k0, k1) of row t, then the G
+        // lanes of the row add their parts
+        const FirT* M = Mt + (size_t)band * K * mstride;
+        for (int r = 0; r < nrow; ++r) {
+          const int t = r * rstep + lane / G;
+          FirT d = FirT(0);
+          if (t < K) {
+            const FirT* Mr = M + t * mstride;
+#pragma unroll 4
+            for (int k = k0; k < k1; ++k) d = fma_t(Mr[k], ring[ring_at(base - K + k)], d);
+          }
+          for (int o = 1; o < G; o <<= 1) d += __shfl_xor_sync(FULL, d, o);
+          if (t < K && g == 0) drow[t] = d;
+        }
+        __syncwarp();
+      }
+
+      FirT hd[6] = {FirT(0), FirT(0), FirT(0), FirT(0), FirT(0), FirT(0)};
+      if (lane < H) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int t = 8 * lane + j;
+          if (t < K) {
+            const FirT zh = z[j], y = WARM ? zh + drow[t] : zh;
+            hd[0] += zh;
+            hd[1] = fma_t(zh, zh, hd[1]);
+            hd[2] = fma_t(alt[j & 1], zh, hd[2]);
+            hd[3] += y;
+            hd[4] = fma_t(y, y, hd[4]);
+            hd[5] = fma_t(alt[j & 1], y, hd[5]);
+          }
+        }
+      }
+      if (WARM) __syncwarp();  // drow is read before the next band writes it
+
+#pragma unroll
+      for (int p = 0; p < 3; ++p) tl[p] = warp_sum(tl[p]);
+      for (int o = 1; o < H2; o <<= 1) {
+#pragma unroll
+        for (int p = 0; p < 6; ++p) hd[p] += __shfl_xor_sync(FULL, hd[p], o);
+      }
+      if (lane == 0) {
+        FirT* o = stats + ((size_t)(b * nb + band) * NSTAT) * nbf + blk;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) o[(size_t)p * nbf] = tl[p];
+#pragma unroll
+        for (int p = 0; p < 6; ++p) o[(size_t)(3 + p) * nbf] = hd[p];
+      }
     }
   }
 }
 
 // Launches stats_kernel<CHEB, CONV, WARM, FirT>; returns the launch's
-// cudaError_t. L a multiple of 256.
+// cudaError_t. L a multiple of 256, x 16-byte aligned.
 template <bool CHEB, bool CONV, bool WARM, typename FirT>
 int launch_stats(const void* x, int B, int L, const void* alpha,
                  const void* beta, const void* halo0, const void* cheb,
                  int ncheb, float halfwidth, const void* fir, const void* warm,
                  int nb, int taps, void* wsum, void* rownz, void* stats,
                  void* stream) {
-  if (B < 1 || B > 65535 || L < BLK || L % BLK || nb < 1 || taps < 2 ||
-      taps - 1 > MAX_K || ncheb < 1 || ncheb > MAX_CHEB)
+  if (B < 1 || B > 65535 || L < HOP || L % HOP || nb < 1 || taps < 2 ||
+      taps - 1 > MAX_K || ncheb < 1 || ncheb > MAX_CHEB ||
+      !(halfwidth > 0.f && halfwidth <= (float)MAX_WTAB))
     return (int)cudaErrorInvalidValue;
-  const int nbf = L / BLK;
-  const dim3 grid((nbf + BLOCKS_PER_CTA - 1) / BLOCKS_PER_CTA, B);
-  stats_kernel<CHEB, CONV, WARM, FirT><<<grid, BLK, 0, (cudaStream_t)stream>>>(
+  const int nbf = L / HOP, K = taps - 1;
+  const size_t tables =
+      ((size_t)nb * taps + (WARM ? (size_t)nb * K * (K + 1) : 0)) * sizeof(FirT);
+  const int staged = tables <= (size_t)TABLE_SMEM_MAX;
+  const size_t smem = SWARPS * WARP_SMEM * sizeof(FirT) + (staged ? tables : 0);
+  auto kernel = stats_kernel<CHEB, CONV, WARM, FirT>;
+  // the static weight table counts against the default 48 KB too, so opt in
+  // to the dynamic size every time
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const int per_block = SWARPS * RUN;
+  const dim3 grid((nbf + per_block - 1) / per_block, B);
+  kernel<<<grid, SWARPS * 32, smem, (cudaStream_t)stream>>>(
       (const int16_t*)x, L, nbf, (const float*)alpha, (const float*)beta,
       (const int16_t*)halo0, (const float*)cheb, ncheb, halfwidth,
-      (const FirT*)fir, (const FirT*)warm, nb, taps, (float*)wsum,
+      (const FirT*)fir, (const FirT*)warm, nb, taps, staged, (float*)wsum,
       (float*)rownz, (FirT*)stats);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,8 @@ bounds and the amplitude integral.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -230,6 +232,147 @@ def block_stats_reference(
             stats[:, band, 3 * p + 2] = (v * sign).sum(dim=-1)
         del z, delta, pieces
     return wsum, rownz, stats
+
+
+# stats_kernel's geometry (csrc/stats.cuh): 32 lanes of 8 samples a hop
+# block, runs of RUN hop blocks a warp, a ring of RING normalized samples
+# whose block starts at MAX_K
+LANES, PER_LANE, RUN, RING, MAX_K = 32, 8, 8, 512, 128
+
+
+def _butterfly(v: torch.Tensor, width: int, up: bool = True) -> torch.Tensor:
+    """``__shfl_xor_sync`` sums over groups of ``width`` lanes (dim -1, a
+    power of two) in the kernel's order: offsets 1, 2, ... (the head, delta)
+    or, with ``up=False``, ..., 2, 1 (``warp_sum``)."""
+    lane = torch.arange(LANES, device=v.device)
+    offsets = [1 << i for i in range(width.bit_length() - 1)]
+    for o in offsets if up else offsets[::-1]:
+        v = v + v[..., lane ^ o]
+    return v
+
+
+def stats_lane_steps(
+    samples, alpha, beta, halo0=None, *, nb_bands, band_taps, filterbank,
+    cheb=True, conv=True, warm=True, fir_dtype=torch.float64,
+):
+    """``stats_kernel``'s algorithm step for step in PyTorch, with
+    ``block_stats_reference``'s arguments and outputs (wsum [B, NBF], rownz
+    [B, NBF], stats [B, NB, 9, NBF]): every warp's run of RUN hop blocks at
+    once; in each block lane l's samples 8l .. 8l+7, their amplitude
+    weights looked up in the Clenshaw series' values at the integers below
+    the halfwidth, the warp's ring of normalized samples with the run's
+    history loaded once and the previous block's tail carried, the FIR as
+    a sliding window of 8 samples a lane
+    (one ring read a tap), the per-lane sums over the lane's samples, then
+    the shuffle trees in the kernel's order (the head's and reset's only
+    over the lanes that hold t < K), and the correction delta = M h split
+    over the lanes as the kernel splits it. A test tool on no path: it
+    holds the kernel's indexing to the plain version on the CPU."""
+    tabs = device_tables(nb_bands, band_taps, filterbank, samples.device)
+    dev, ft = samples.device, fir_dtype
+    B, L = samples.shape
+    NBF, K = L // BLK, band_taps - 1
+    NR = -(-NBF // RUN)
+    xpad = torch.zeros(B, NR * RUN * BLK, dtype=samples.dtype, device=dev)
+    xpad[:, :L] = samples
+    x = xpad.reshape(B, NR, RUN, LANES, PER_LANE)
+    a, be = alpha.to(ft)[:, None, None, None], beta.to(ft)[:, None, None, None]
+    lane = torch.arange(LANES, device=dev)
+    t = (PER_LANE * lane[:, None] + torch.arange(PER_LANE, device=dev)).expand(LANES, PER_LANE)
+
+    # each run's history, the K samples before its first block
+    ring = torch.zeros(B, NR, RING, dtype=ft, device=dev)
+    base = MAX_K
+    h = (torch.arange(NR, device=dev) * RUN * BLK)[:, None] - K + torch.arange(K, device=dev)
+    hist = a[..., 0] * samples[:, h.clamp(min=0)].to(ft) + be[..., 0]
+    if halo0 is None:
+        before = torch.zeros(B, NR, K, dtype=ft, device=dev)
+    else:
+        before = a[..., 0] * halo0[:, (h + K).clamp(0, max(K - 1, 0))].to(ft) + be[..., 0]
+    ring[..., (base - K + torch.arange(K, device=dev)) % RING] = torch.where(h >= 0, hist, before)
+
+    H = (K + 7) // 8  # lanes holding head samples
+    H2 = 1 << (H - 1).bit_length()
+    G = 1  # lanes sharing a row of M
+    while 2 * G * K <= LANES:
+        G *= 2
+    g = lane % G
+    kc = -(-K // G)
+    k0 = (g * kc).clamp(max=K)
+    k1 = (k0 + kc).clamp(max=K)
+    rstep = LANES // G
+    alt = torch.tensor([1.0, -1.0], dtype=ft, device=dev)[t % 2]
+    halfwidth = float(tables.amplitude_cdf_poly()[0])
+    nw = math.ceil(halfwidth)
+    wtab = cheb_T(torch.arange(nw, dtype=torch.float32, device=dev), tabs["cheb"], halfwidth)
+
+    wsum = torch.zeros(B, NR, RUN, dtype=torch.float32, device=dev)
+    rownz = torch.zeros(B, NR, RUN, dtype=torch.float32, device=dev)
+    stats = torch.zeros(B, nb_bands, NSTAT, NR, RUN, dtype=ft, device=dev)
+    for i in range(RUN):
+        s = x[:, :, i].to(torch.float32)  # [B, NR, 32, 8]
+        rownz[:, :, i] = (s != 0).flatten(2).any(dim=-1).to(torch.float32)
+        if cheb:  # the series at each integer mf < halfwidth, then a lookup
+            m = 1000.0 - torch.abs(s + 1.0)
+            mf = torch.where(m < 0, -m - 1.0, m).long()
+            val = torch.where(mf < nw, wtab[mf.clamp(max=nw - 1)], 1.0)
+            w = torch.where(m < 0, 1.0 - val, val)
+        else:
+            w = s
+        ws = w[..., 0]
+        for j in range(1, PER_LANE):
+            ws = ws + w[..., j]
+        wsum[:, :, i] = _butterfly(ws, LANES, up=False)[..., 0]
+        xn = a * s.to(ft) + be
+        ring[..., (base + t) % RING] = xn
+
+        for band in range(nb_bands):
+            if conv:
+                f = tabs["fir"][band].to(ft)
+                v, z = xn, torch.zeros_like(xn)
+                for m in range(band_taps):
+                    z = z + f[m] * v
+                    new = ring[..., (base + PER_LANE * lane - m - 1) % RING]
+                    v = torch.cat([new[..., None], v[..., :-1]], dim=-1)
+            else:
+                z = xn
+            zero = torch.zeros((), dtype=ft, device=dev)
+            tl = [zero] * 3
+            for j in range(PER_LANE):
+                zj, tail = z[..., j], t[:, j] >= K
+                tl = [acc + torch.where(tail, v_, zero)
+                      for acc, v_ in zip(tl, (zj, zj * zj, alt[:, j] * zj))]
+            tl = [_butterfly(v_, LANES, up=False)[..., 0] for v_ in tl]
+
+            drow = torch.zeros(B, NR, max(K, 1), dtype=ft, device=dev)
+            if warm:
+                M = tabs["warm"][band].to(ft)
+                for r in range(-(-K // rstep)):
+                    row = r * rstep + lane // G
+                    d = torch.zeros(B, NR, LANES, dtype=ft, device=dev)
+                    for kk in range(kc):
+                        k = k0 + kk
+                        ok = (row < K) & (k < k1)
+                        mk = M[row.clamp(max=K - 1), k.clamp(max=K - 1)]
+                        hk = ring[..., (base - K + k.clamp(max=K - 1)) % RING]
+                        d = d + torch.where(ok, mk * hk, zero)
+                    d = _butterfly(d, G)
+                    put = (row < K) & (g == 0)
+                    drow[..., row[put]] = d[..., put]
+            hd = [zero] * 6
+            for j in range(PER_LANE):
+                tj = t[:, j]
+                head = tj < K
+                zh = z[..., j]
+                y = zh + drow[..., tj.clamp(max=max(K - 1, 0))] if warm else zh
+                aj = alt[:, j]
+                hd = [acc + torch.where(head, v_, zero) for acc, v_ in
+                      zip(hd, (zh, zh * zh, aj * zh, y, y * y, aj * y))]
+            hd = [_butterfly(v_, H2)[..., 0] for v_ in hd]
+            stats[:, band, :, :, i] = torch.stack(tl + hd, dim=1)
+        base += BLK
+    return (wsum.reshape(B, -1)[:, :NBF], rownz.reshape(B, -1)[:, :NBF],
+            stats.reshape(B, nb_bands, NSTAT, -1)[..., :NBF])
 
 
 def normalized_history(samples, alpha, beta, halo0, K, dtype):

@@ -12,19 +12,22 @@ Phases, one line each, stopping at the first failure:
    sm_90a from the checkout, one ``nvcc`` each, started together, and
    prints each build's time and each kernel's ptxas registers and spills;
 3. kernel vs plain, each kernel's wrapper against its plain version on the
-   same card tensors, (a) on a B=4, L=2^18 batch of edge cases and (b) on
+   same card tensors, (a) on a B=5, L=2^18 batch of edge cases and (b) on
    the main-path batch B=64, L=2^23, with the warm median of 5 timings of
-   each: K1 ``fused_all_call``; K2 ``fused_stats_call`` (edge batch with
-   and without ``halo0``); K3 ``stft_power`` (edge batch with
+   each: the prepass ``prepass_sums`` (int64 sums identical; the edge batch
+   has a silent song and one whose int32 sum wraps); K1 ``fused_all_call``;
+   K2 ``fused_stats_call`` (edge batch with and without ``halo0``, and at
+   2 and 129 taps); K3 ``stft_power`` (edge batch with
    ``frame_offset`` 0, mid-song and past every song's frames), with K3's
    yardsticks ``torch.matmul`` (a dense DFT) and ``torch.fft.rfft`` of the
    same frames;
 4. the main path: ``bliss_tpu_torch.api.analyze_pcm`` on the seeded B=64,
-   L=2^23 batch, checked finite, launched through K1, and held against the
-   same path with the plain version in place of the kernel;
+   L=2^23 batch, checked finite, launched through the prepass and K1, and
+   held against the same path with the plain version in place of the
+   kernel;
 5. the two-kernel path (``for_gpu()`` with ``single_pass=False``) through
    ``analyze_batch`` on the card-resident main batch, launched through K2
-   and K3 only, and the hybrid path (``AnalysisConfig.for_gpu_hybrid()``:
+   and K3 (and the prepass) only, and the hybrid path (``AnalysisConfig.for_gpu_hybrid()``:
    K2, K3, then the float64 host finish) through ``api.analyze_pcm``; each
    counts the same beats as the main path and as itself with the plain
    versions in place of the kernels;
@@ -118,7 +121,9 @@ def edge_batch(rng: np.random.Generator):
     quiet_edges = synth_song(rng, L - 1030)  # n not a multiple of 1024
     loud = rng.integers(-32768, 32768, size=L, dtype=np.int16)  # odd l+r
     clicks = synth_song(rng, L - 4094)
-    return [silent, quiet_edges, loud, clicks], [L // (2 * SR)] * 4
+    # loud and positive: its int32 sum wraps; n not a multiple of 8
+    wraps = rng.integers(20000, 32768, size=L - 3, dtype=np.int16)
+    return [silent, quiet_edges, loud, clicks, wraps], [L // (2 * SR)] * 5
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -167,6 +172,15 @@ def stats_errors(label, k_out, p_out):
     }
 
 
+def prepass_errors(k_out, p_out):
+    """The prepass's int64 sums (of s and of s^2) identical to the plain
+    version's: integer sums do not depend on their order."""
+    for name, k, p in zip(("sum_s", "sum_s2"), k_out, p_out):
+        if k.dtype != torch.int64 or not torch.equal(k, p):
+            raise AssertionError(f"prepass {name} differs from the plain version")
+    return {"sums": (0.0, 0.0)}
+
+
 def power_errors(label, kp, pp):
     """The summed spectrum within 1e-5 of each song's largest bin; a song
     with no frame that counts must be zero in both."""
@@ -195,17 +209,21 @@ def kernel_vs_plain(label, kern, plain, errors, timed: bool):
 
 
 def check_kernels(batch, label, timed: bool, edge: bool):
-    """K1, K2 and K3 against their plain versions on ``batch``; on the edge
-    batch K2 also runs with a loud random halo0 and K3 with frame offsets.
-    Returns {kernel: (errors, ms, plain_ms)} of the plain-argument runs."""
+    """The prepass, K1, K2 and K3 against their plain versions on
+    ``batch``; on the edge batch K2 also runs with a loud random halo0 and
+    at 2 and 129 taps, and K3 with frame offsets. Returns {kernel: (errors,
+    ms, plain_ms)} of the plain-argument runs."""
     from bliss_tpu_torch.kernels import fused_all as fa
     from bliss_tpu_torch.kernels import fused_stats as fs
     from bliss_tpu_torch.kernels import stft
 
     x, n = batch.samples, batch.n_samples
+    out = {"prepass": kernel_vs_plain(
+        f"prepass {label}", lambda: fs.prepass_sums(x, n),
+        lambda: fs.prepass_sums_reference(x, n), prepass_errors, timed,
+    )}
     alpha, beta, _ = fs.normalization(x, n)
     n_frames = stft.frame_counts(n)
-    out = {}
 
     def k1_errors(k, p):
         return {**stats_errors("fused_all", k, p), **power_errors("fused_all", k[3], p[3])}
@@ -230,6 +248,15 @@ def check_kernels(batch, label, timed: bool, edge: bool):
             lambda k, p: stats_errors("fused_stats", k, p), timed and halo0 is None,
         )
         out.setdefault("fused_stats", res)
+    if edge:  # the shortest and the longest FIR the kernel takes
+        for taps in (2, 129):
+            kw = dict(nb_bands=1, band_taps=taps, filterbank="firwin")
+            kernel_vs_plain(
+                f"fused_stats {label} taps={taps}",
+                lambda: fs.fused_stats_call(x, alpha, beta, **kw),
+                lambda: fs.fused_stats_reference(x, alpha, beta, **kw),
+                lambda k, p: stats_errors("fused_stats", k, p), False,
+            )
     offsets = [None]
     if edge:
         offsets += [0, int(n_frames.min()) // 2, 10_000]  # start, mid-song, past
@@ -429,7 +456,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     edge_arrays, edge_durs = edge_batch(rng)
     edge = PCMBatch.from_arrays(edge_arrays, edge_durs, device="cuda")
-    check_kernels(edge, "(a) B=4 L=2^18 edge cases", timed=False, edge=True)
+    check_kernels(edge, "(a) B=5 L=2^18 edge cases", timed=False, edge=True)
 
     t0 = time.perf_counter()
     arrays, durations = main_batch(rng)
@@ -441,12 +468,13 @@ def main() -> int:
     kernels = check_kernels(batch, "(b) B=64 L=2^23", timed=True, edge=False)
     frames = int(stft.frame_counts(batch.n_samples).clamp(max=MAIN_L // 1024).sum())
     works = {
+        "prepass": bounds.prepass_work(MAIN_B, MAIN_L),
         "fused_all": bounds.fused_all_work(MAIN_B, MAIN_L, frames),
         "fused_stats": bounds.stats_work(MAIN_B, MAIN_L),
         "stft_power": bounds.power_work(frames, MAIN_B),
     }
     k3_calls = k3_library_ms(batch)
-    library = {"fused_all": None, "fused_stats": None,
+    library = {"prepass": None, "fused_all": None, "fused_stats": None,
                "stft_power": k3_calls["torch.matmul"]}
     for name, (_, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
@@ -461,7 +489,7 @@ def main() -> int:
     if cfg != AnalysisConfig.for_gpu():
         raise AssertionError(f"default_config() is not for_gpu(): {cfg}")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fs.LAUNCHES = stft.LAUNCHES = 0
+    fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
     t0 = time.perf_counter()
     out = api.analyze_pcm(arrays, durations, device="cuda")
     cold_s = time.perf_counter() - t0
@@ -470,12 +498,13 @@ def main() -> int:
         t0 = time.perf_counter()
         out = api.analyze_pcm(arrays, durations, device="cuda")
         runs.append(time.perf_counter() - t0)
-    launches = {"fused_all": fa.LAUNCHES}
+    launches = {"fused_all": fa.LAUNCHES, "prepass": fs.PREPASS_LAUNCHES}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if fa.LAUNCHES < 1 or fs.LAUNCHES or stft.LAUNCHES:
+    if fa.LAUNCHES < 1 or fs.PREPASS_LAUNCHES < 1 or fs.LAUNCHES or stft.LAUNCHES:
         raise AssertionError(
-            f"the main path launched fused_all {fa.LAUNCHES}, fused_stats "
-            f"{fs.LAUNCHES}, stft_power {stft.LAUNCHES} times; want K1 only"
+            f"the main path launched prepass {fs.PREPASS_LAUNCHES}, fused_all "
+            f"{fa.LAUNCHES}, fused_stats {fs.LAUNCHES}, stft_power {stft.LAUNCHES} "
+            f"times; want the prepass and K1 only"
         )
     if out.shape != (MAIN_B, 4) or not np.isfinite(out).all():
         raise AssertionError(f"main path output not finite [64, 4]: {out}")
@@ -483,7 +512,7 @@ def main() -> int:
     log(f"main path analyze_pcm B=64 L=2^23: first {cold_s:.3f} s, warm median "
         f"of 3 {warm:.3f} s = {MAIN_B / warm:.1f} songs/s (host padding and "
         f"copy included), peak device memory {peak_gib:.2f} GiB, kernel "
-        f"launches {fa.LAUNCHES} {label}")
+        f"launches prepass {fs.PREPASS_LAUNCHES} fused_all {fa.LAUNCHES} {label}")
     device_ms = cuda_ms(lambda: analyze_batch(batch, cfg), reps=3)
     log(f"main path analyze_batch on the card-resident batch: warm median of 3 "
         f"{device_ms:.1f} ms = {MAIN_B / device_ms * 1e3:.1f} songs/s {label}")
@@ -502,13 +531,14 @@ def main() -> int:
         mock.patch.object(stft, "stft_power", stft.stft_power_reference),
     )
     two = AnalysisConfig(**{**dataclasses.asdict(cfg), "single_pass": False})
-    fa.LAUNCHES = fs.LAUNCHES = stft.LAUNCHES = 0
+    fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
     out2 = analyze_batch(batch, two).cpu().numpy()
     launches["fused_stats"], launches["stft_power"] = fs.LAUNCHES, stft.LAUNCHES
-    if fa.LAUNCHES or fs.LAUNCHES < 1 or stft.LAUNCHES < 1:
+    if fa.LAUNCHES or fs.LAUNCHES < 1 or stft.LAUNCHES < 1 or fs.PREPASS_LAUNCHES < 1:
         raise AssertionError(
-            f"the two-kernel path launched fused_all {fa.LAUNCHES}, fused_stats "
-            f"{fs.LAUNCHES}, stft_power {stft.LAUNCHES} times; want K2 and K3 only"
+            f"the two-kernel path launched prepass {fs.PREPASS_LAUNCHES}, fused_all "
+            f"{fa.LAUNCHES}, fused_stats {fs.LAUNCHES}, stft_power {stft.LAUNCHES} "
+            f"times; want the prepass, K2 and K3 only"
         )
     with plain_k2_k3[0], plain_k2_k3[1]:
         ref2 = analyze_batch(batch, two).cpu().numpy()
@@ -523,12 +553,13 @@ def main() -> int:
 
     hyb = AnalysisConfig.for_gpu_hybrid()
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fs.LAUNCHES = stft.LAUNCHES = 0
+    fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
     outh = api.analyze_pcm(arrays, durations, cfg=hyb, device="cuda")
-    hyb_launches = (fa.LAUNCHES, fs.LAUNCHES, stft.LAUNCHES)
+    hyb_launches = (fs.PREPASS_LAUNCHES, fa.LAUNCHES, fs.LAUNCHES, stft.LAUNCHES)
     hyb_peak = torch.cuda.max_memory_allocated() / 2**30
-    if hyb_launches[0] or hyb_launches[1] < 1 or hyb_launches[2] < 1:
-        raise AssertionError(f"the hybrid path launched (K1, K2, K3) {hyb_launches} times")
+    if hyb_launches[0] < 1 or hyb_launches[1] or hyb_launches[2] < 1 or hyb_launches[3] < 1:
+        raise AssertionError(
+            f"the hybrid path launched (prepass, K1, K2, K3) {hyb_launches} times")
     with plain_k2_k3[0], plain_k2_k3[1]:
         refh = api.analyze_features(batch, hyb)
     same_scores("hybrid path", outh, out, "the main path")
@@ -553,7 +584,7 @@ def main() -> int:
         copy_s.append(t2 - t1)
         finish_s.append(t3 - t2)
     warm_h = statistics.median(runs)
-    log(f"hybrid path analyze_pcm B=64 L=2^23: launches (K1, K2, K3) {hyb_launches}; "
+    log(f"hybrid path analyze_pcm B=64 L=2^23: launches (prepass, K1, K2, K3) {hyb_launches}; "
         f"beat counts identical to the main path and its plain-kernel run, max "
         f"|diff| vs plain {col_err.max():.2e}; warm median of 3 {warm_h:.3f} s = "
         f"{MAIN_B / warm_h:.1f} songs/s (host padding and copy included); "
@@ -575,7 +606,7 @@ def main() -> int:
     log(f"distance_matrix 64x64 vs numpy float64: max abs err {dm_err:.2e}")
 
     # 7. the ablation: each variant against its plain version, then its path
-    checked = [check_ablation(batch_inputs(edge), "(a) B=4 L=2^18 edge cases")]
+    checked = [check_ablation(batch_inputs(edge), "(a) B=5 L=2^18 edge cases")]
     sinp = breakdown.inputs("script")
     checked.append(check_ablation(sinp, "(b) B=128 L=491520"))
     inp = breakdown.inputs("main")
@@ -603,8 +634,9 @@ def main() -> int:
         bound, by = bounds.bound_ms(works[name])
         entries.append({
             "name": name, "source": "bliss_tpu_torch/kernels/csrc/"
-            + ("power.cuh" if name == "stft_power" else "fused_all.cu"),
+            + {"stft_power": "power.cuh", "prepass": "prepass.cuh"}.get(name, "fused_all.cu"),
             "replaces": {
+                "prepass": "bliss_tpu/kernels/fused_all.py:385 (the XLA prepass; no Pallas kernel)",
                 "fused_all": "bliss_tpu/kernels/fused_all.py:52",
                 "fused_stats": "bliss_tpu/kernels/fused_stats.py:71",
                 "stft_power": "bliss_tpu/kernels/pallas_stft.py:75",

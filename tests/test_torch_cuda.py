@@ -37,6 +37,8 @@ def _songs():
 
 
 FILTERBANKS = [(1, 17, "firwin"), (5, 17, "reference5"), (36, 33, "reference36")]
+# and the shortest and longest FIR the stats kernel takes
+STATS_FILTERBANKS = FILTERBANKS + [(1, 2, "firwin"), (1, 129, "firwin")]
 TWO_KERNEL = AnalysisConfig(
     dtype="float32", amplitude_mode="poly", tempo_finish="device_exact", fused_kernel=True
 )
@@ -73,7 +75,7 @@ def _counters():
     return fused_all.LAUNCHES, fused_stats.LAUNCHES, stft.LAUNCHES
 
 
-@pytest.mark.parametrize("nb_bands,taps,filterbank", FILTERBANKS)
+@pytest.mark.parametrize("nb_bands,taps,filterbank", STATS_FILTERBANKS)
 @pytest.mark.parametrize("with_halo", [False, True], ids=["no_halo", "halo0"])
 def test_fused_stats_kernel_matches_plain(cuda, nb_bands, taps, filterbank, with_halo):
     songs, durs = _songs()
@@ -98,6 +100,30 @@ def test_fused_stats_kernel_matches_plain(cuda, nb_bands, taps, filterbank, with
         nf = stft.frame_counts(batch.n_samples)
         _, _, e1, _ = fused_all.fused_all_call(batch.samples, alpha, beta, nf, halo0, **kw)
         assert ((e1 - pe).abs() / (pe.abs() + 1e-3)).max() < 1e-9
+
+
+def test_prepass_kernel_matches_plain(cuda):
+    """The int64 sums identical to the plain version's, and so the mean and
+    the variance: a song whose int32 sum wraps, a silent one, counts that
+    are not multiples of 8."""
+    rng = np.random.RandomState(8)
+    L = 1 << 18
+    x = rng.randint(-32768, 32768, size=(4, L)).astype(np.int16)
+    x[1] = rng.randint(20000, 32768, size=L)
+    x[2] = 0
+    n = torch.tensor([L, L - 3, 1000, 99_999], dtype=torch.int32)
+    xg = torch.from_numpy(x).to(cuda)
+    before = fused_stats.PREPASS_LAUNCHES
+    got = fused_stats.prepass_sums(xg, n.to(cuda))
+    torch.cuda.synchronize()
+    assert fused_stats.PREPASS_LAUNCHES == before + 1
+    ref = fused_stats.prepass_sums(torch.from_numpy(x), n)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int64 and torch.equal(g.cpu(), r)
+    assert int(ref[0][1]) > 2**31  # the int32 sum wraps
+    mean, var = fused_stats.mean_variance(xg, n.to(cuda))
+    mean_c, var_c = fused_stats.mean_variance(torch.from_numpy(x), n)
+    assert torch.equal(mean.cpu(), mean_c) and torch.equal(var.cpu(), var_c)
 
 
 def _ragged_songs():

@@ -2,7 +2,8 @@
 interpreter in which ``jax``, ``ml_dtypes`` and ``bliss_tpu`` cannot be
 imported runs ``analyze_pcm`` on the CPU, under the main path's config and
 the hybrid config (two kernels, then the NumPy/SciPy host finish), imports
-every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant."""
+every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant,
+and runs the prepass sums and the stats kernel's CPU twin."""
 
 import os
 import subprocess
@@ -37,6 +38,12 @@ ab = (torch.full((2,), 1e-3), torch.full((2,), 1e-5))
 v = fused.stats_variant(x16, *ab, "full", chunk=2048)
 assert v.shape == (2, 2, 8, 8) and torch.isfinite(v).all(), v
 assert ablate_main(["--shape", "script"]) == 2  # no GPU here: exits, times nothing
+from bliss_tpu_torch.kernels import fused_stats as fs
+s1, s2 = fs.prepass_sums(x16, torch.tensor([4096, 1001], dtype=torch.int32))
+assert s1.dtype == s2.dtype == torch.int64 and int(s2[1]) > 0, (s1, s2)
+twin = fs.stats_lane_steps(x16, *ab, nb_bands=1, band_taps=17, filterbank="firwin")
+ref = fs.block_stats_reference(x16, *ab, nb_bands=1, band_taps=17, filterbank="firwin")
+assert torch.equal(twin[1], ref[1]) and torch.allclose(twin[2], ref[2], rtol=1e-12, atol=1e-12)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())
