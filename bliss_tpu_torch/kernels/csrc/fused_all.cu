@@ -34,9 +34,10 @@
 //    Its ~42 fp64 FLOP a sample bound it on the fp64 CUDA cores (34 TFLOP/s
 //    peak), not on its 2-byte read (kernels/bounds.py). One warp takes a
 //    hop block at a time, 8 samples a lane read as one 16-byte word, and
-//    walks a run of consecutive blocks with the FIR's history carried in a
-//    warp-private ring; the FIR runs in registers on a sliding window, the
-//    sums by shuffles, and no block barrier sits in its loop.
+//    walks runs of consecutive blocks (a persistent grid) with the FIR's
+//    history carried in a warp-private ring; the FIR runs in registers on a
+//    sliding window, the sums through a warp-private transpose and
+//    shuffles, and no block barrier sits in its loop.
 //  * prepass_kernel (csrc/prepass.cuh): the exact int64 sums of s and s^2
 //    over each song's valid samples, from which the wrappers form the C
 //    reference's integer mean and variance; one read of the PCM in 16-byte

@@ -23,15 +23,16 @@
 // ~70 fp32 FLOP a sample that the table below saves).
 //
 // The design: one warp a hop block, 8 consecutive samples a lane, and no
-// block barrier in the hop-block loop. stats_kernel, grid (runs of
-// SWARPS * RUN hop blocks, songs), SWARPS warps a block; each warp walks
-// its own run of RUN consecutive hop blocks:
+// block barrier in the hop-block loop. stats_kernel, a persistent grid of
+// SWARPS-warp blocks, as many as fit on the card; each warp walks runs of
+// RUN consecutive hop blocks of one song, run after run (the tables are
+// set up once a block):
 //   - lane l reads samples 8l .. 8l+7 of the block with one 16-byte load
 //     (the next block's load is issued before this block's arithmetic);
-//   - the amplitude weight depends on the integer mf = |1000 - |s+1|| (or
-//     that minus 1) only while mf < halfwidth, so each block evaluates the
-//     Clenshaw series once for each such mf into a table (ceil(halfwidth)
-//     values, 200 for the shipped fit) and the samples read it;
+//   - the amplitude weight is 1 or 0 but for the 2 ceil(halfwidth) values
+//     of |s+1| around 1000 (400 for the shipped fit), so each block
+//     evaluates the Clenshaw series once for each into a table and the
+//     samples index it with |s+1|;
 //   - the normalized samples go into a warp-private ring in shared memory
 //     behind the K before them: the previous block's last K, carried in the
 //     ring, or at the run's first block the K samples before it, read once
@@ -40,9 +41,11 @@
 //   - the FIR runs in registers on a sliding window of 8 samples a lane,
 //     one ring read and 8 FMAs a tap;
 //   - the sums run in registers over the lane's 8 samples, then over the
-//     warp by shuffles: the tail's 3 over 32 lanes, the head's and reset's
-//     6 only over the ceil(K/8) lanes that hold t < K, wsum over 32 lanes,
-//     rownz by __any_sync; always in the same order;
+//     warp through a warp-private transpose in shared memory: 24 lanes sum
+//     the tail's 3 pieces 4 lanes at a time, then 3 shuffle levels; 6 lanes
+//     sum the head's and reset's 6 over the ceil(K/8) lanes that hold
+//     t < K; wsum by shuffles, rownz by __any_sync; always in the same
+//     order;
 //   - delta's K x K MACs are shared by the 32 lanes (G lanes a row of M, G
 //     the largest power of two with G*K <= 32), combined by shuffles and
 //     handed to the head lanes through a warp-private row of K values;
@@ -65,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int HOP = 256;           // tempo hop: samples a hop block, 8 a lane
@@ -72,12 +77,13 @@ constexpr int SWARPS = 4;          // warps a stats block
 constexpr int RUN = 8;             // consecutive hop blocks a warp walks
 constexpr int MAX_K = 128;         // taps - 1
 constexpr int MAX_CHEB = 32;
-constexpr int MAX_WTAB = 1024;     // ceil(halfwidth) of the smoothing CDF
+constexpr int MAX_WTAB = 1024;     // 2 ceil(halfwidth): the weight table
 constexpr int NSTAT = 9;           // (v, v^2, alt) x (tail, head, reset)
 constexpr int RING = 512;          // ring of normalized samples, >= HOP + MAX_K
 constexpr int ROWS = RING / 8;     // ring rows of 8 samples, each padded to 9
 constexpr int RING_PHYS = 9 * ROWS;
-constexpr int WARP_SMEM = RING_PHYS + MAX_K;    // ring, then delta's row
+constexpr int RED = 33;            // a row of the pieces' transpose, padded
+constexpr int WARP_SMEM = RING_PHYS + MAX_K + NSTAT * RED;  // ring, delta, pieces
 constexpr int TABLE_SMEM_MAX = 64 * 1024;       // staged fir and M, bytes
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -114,20 +120,19 @@ __device__ __forceinline__ float cheb_half(float mf, const float* __restrict__ c
   return __ldg(c) + t * b1 - b2;
 }
 
-// The amplitude weight T(1000 - |s+1|) of an int16 sample s: the CDF
-// folded by symmetry, 1 from mf >= hw on. mf is an integer, so the series
-// is read from wtab, its values at mf = 0 .. nw-1 (nw = ceil(hw)).
-__device__ __forceinline__ float cheb_weight(float s, const float* wtab, int nw) {
-  const float m = 1000.f - fabsf(s + 1.f);
-  const bool neg = m < 0.f;
-  const int mf = (int)(neg ? -m - 1.f : m);
-  const float val = mf < nw ? wtab[mf] : 1.f;
-  return neg ? 1.f - val : val;
+// The amplitude weight T(1000 - |s+1|) of an int16 sample s, a = |s+1|:
+// with m = 1000 - a, the CDF's positive half at mf = m (m >= 0) or 1 minus
+// it at mf = -m - 1 (m < 0), and that half is 1 from mf >= hw on. So the
+// weight is 1 for a < 1001 - nw, 0 for a >= 1001 + nw (nw = ceil(hw)), and
+// wtab[a - (1001 - nw)] between, the 2 nw values the block evaluates once.
+__device__ __forceinline__ float cheb_weight(int s, const float* wtab, int nw) {
+  const int i = abs(s + 1) - (1001 - nw);
+  return (unsigned)i < (unsigned)(2 * nw) ? wtab[i] : (i < 0 ? 1.f : 0.f);
 }
 
 template <bool CHEB, bool CONV, bool WARM, typename FirT>
 __global__ void __launch_bounds__(SWARPS * 32, 4) stats_kernel(
-    const int16_t* __restrict__ x, int L, int nbf,
+    const int16_t* __restrict__ x, int B, int L, int nbf,
     const float* __restrict__ alpha, const float* __restrict__ beta,
     const int16_t* __restrict__ halo0, const float* __restrict__ cheb,
     int ncheb, float halfwidth, const FirT* __restrict__ fir,
@@ -138,7 +143,7 @@ __global__ void __launch_bounds__(SWARPS * 32, 4) stats_kernel(
   __shared__ float wtab[MAX_WTAB];
   FirT* const smem = reinterpret_cast<FirT*>(smem_raw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y, K = taps - 1;
+  const int K = taps - 1;
 
   // fir [nb, taps] and M [nb, K, K], staged with M's rows padded to K+1
   const FirT* firt = fir;
@@ -157,31 +162,17 @@ __global__ void __launch_bounds__(SWARPS * 32, 4) stats_kernel(
   }
   const int nw = (int)ceilf(halfwidth);
   if (CHEB)
-    for (int i = threadIdx.x; i < nw; i += blockDim.x)
-      wtab[i] = cheb_half((float)i, cheb, ncheb, halfwidth);
+    for (int i = threadIdx.x; i < 2 * nw; i += blockDim.x) {
+      const bool neg = i >= nw;  // a >= 1001: m < 0
+      const float val = cheb_half((float)(neg ? i - nw : nw - 1 - i), cheb, ncheb, halfwidth);
+      wtab[i] = neg ? 1.f - val : val;
+    }
   __syncthreads();  // the tables; no block barrier after this one
 
-  const int blk0 = (blockIdx.x * SWARPS + warp) * RUN;
-  if (blk0 >= nbf) return;
-  const int blk1 = min(blk0 + RUN, nbf);
   FirT* const ring = smem + warp * WARP_SMEM;
   FirT* const drow = ring + RING_PHYS;  // delta of the head, t < K
-  const FirT a = alpha[b], be = beta[b];
-  const int16_t* xb = x + (size_t)b * L;
-  const int4* xw4 = reinterpret_cast<const int4*>(xb);
-
-  // the run's history: the K samples before its first block, normalized
-  int base = MAX_K;  // ring index of the current block's sample 0
-  for (int k = lane; k < K; k += 32) {
-    const long h = (long)blk0 * HOP - K + k;
-    ring[ring_at(base - K + k)] =
-        h >= 0 ? fma_t(a, (FirT)xb[h], be)
-               : (halo0 ? fma_t(a, (FirT)halo0[(size_t)b * K + h + K], be) : FirT(0));
-  }
-
+  FirT* const red = drow + MAX_K;       // the pieces' per-lane sums [9][RED]
   const int H = (K + 7) >> 3;  // lanes holding head samples
-  int H2 = 1;                  // H rounded up to a power of two
-  while (H2 < H) H2 <<= 1;
   int G = 1;                   // lanes sharing a row of M
   while (2 * G * K <= 32) G <<= 1;
   const int g = lane & (G - 1);
@@ -190,26 +181,44 @@ __global__ void __launch_bounds__(SWARPS * 32, 4) stats_kernel(
   const int rstep = 32 / G, nrow = (K + rstep - 1) / rstep;
   const FirT alt[2] = {FirT(1), FirT(-1)};  // (-1)^t, t = 8 lane + j
 
+  // the grid is persistent: each warp walks runs of RUN hop blocks
+  const int runs = (nbf + RUN - 1) / RUN;
+  for (int run = blockIdx.x * SWARPS + warp; run < runs * B; run += gridDim.x * SWARPS) {
+  const int b = run / runs, blk0 = (run - b * runs) * RUN, blk1 = min(blk0 + RUN, nbf);
+  const FirT a = alpha[b], be = beta[b];
+  const int16_t* xb = x + (size_t)b * L;
+  const int4* xw4 = reinterpret_cast<const int4*>(xb);
+
+  // the run's history: the K samples before its first block, normalized
+  int base = MAX_K;  // ring index of the current block's sample 0
+  __syncwarp();      // the previous run's reads of the ring are done
+  for (int k = lane; k < K; k += 32) {
+    const long h = (long)blk0 * HOP - K + k;
+    ring[ring_at(base - K + k)] =
+        h >= 0 ? fma_t(a, (FirT)xb[h], be)
+               : (halo0 ? fma_t(a, (FirT)halo0[(size_t)b * K + h + K], be) : FirT(0));
+  }
+
   int4 nxt = __ldg(xw4 + (size_t)blk0 * (HOP / 8) + lane);
   for (int blk = blk0; blk < blk1; ++blk, base += HOP) {
     const int4 cur = nxt;
     if (blk + 1 < blk1) nxt = __ldg(xw4 + (size_t)(blk + 1) * (HOP / 8) + lane);
-    float s[8];
+    int s[8];
     {
       const int words[4] = {cur.x, cur.y, cur.z, cur.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        s[2 * q] = (float)((int)((unsigned)words[q] << 16) >> 16);
-        s[2 * q + 1] = (float)(words[q] >> 16);
+        s[2 * q] = (int)((unsigned)words[q] << 16) >> 16;
+        s[2 * q + 1] = words[q] >> 16;
       }
     }
     bool nz = false;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) nz |= s[j] != 0.f;
+    for (int j = 0; j < 8; ++j) nz |= s[j] != 0;
     const bool nonzero = __any_sync(FULL, nz);
-    float ws = CHEB ? cheb_weight(s[0], wtab, nw) : s[0];
+    float ws = CHEB ? cheb_weight(s[0], wtab, nw) : (float)s[0];
 #pragma unroll
-    for (int j = 1; j < 8; ++j) ws += CHEB ? cheb_weight(s[j], wtab, nw) : s[j];
+    for (int j = 1; j < 8; ++j) ws += CHEB ? cheb_weight(s[j], wtab, nw) : (float)s[j];
     ws = warp_sum(ws);
     if (lane == 0) {
       rownz[(size_t)b * nbf + blk] = nonzero ? 1.f : 0.f;
@@ -309,22 +318,40 @@ __global__ void __launch_bounds__(SWARPS * 32, 4) stats_kernel(
           }
         }
       }
-      if (WARM) __syncwarp();  // drow is read before the next band writes it
 
+      // the 9 pieces over the warp, through red: lane 8p + q sums tail
+      // piece p over lanes 4q .. 4q+3, then the 8 lanes of p add theirs
+      // (shuffles 1, 2, 4); lane 24 + p sums head piece p over lanes 0 .. H-1
 #pragma unroll
-      for (int p = 0; p < 3; ++p) tl[p] = warp_sum(tl[p]);
-      for (int o = 1; o < H2; o <<= 1) {
+      for (int p = 0; p < 3; ++p) red[p * RED + lane] = tl[p];
+      if (lane < H) {
 #pragma unroll
-        for (int p = 0; p < 6; ++p) hd[p] += __shfl_xor_sync(FULL, hd[p], o);
+        for (int p = 0; p < 6; ++p) red[(3 + p) * RED + lane] = hd[p];
       }
-      if (lane == 0) {
-        FirT* o = stats + ((size_t)(b * nb + band) * NSTAT) * nbf + blk;
-#pragma unroll
-        for (int p = 0; p < 3; ++p) o[(size_t)p * nbf] = tl[p];
-#pragma unroll
-        for (int p = 0; p < 6; ++p) o[(size_t)(3 + p) * nbf] = hd[p];
+      __syncwarp();
+      FirT sum = FirT(0);
+      if (lane < 24) {
+        const FirT* r = red + (lane >> 3) * RED + 4 * (lane & 7);
+        sum = r[0];
+        sum += r[1];
+        sum += r[2];
+        sum += r[3];
+      } else if (lane < 30) {
+        const FirT* r = red + (lane - 21) * RED;
+        sum = r[0];
+        for (int i = 1; i < H; ++i) sum += r[i];
       }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) {
+        const FirT u = __shfl_xor_sync(FULL, sum, o);
+        if (lane < 24) sum += u;
+      }
+      const int piece = lane < 24 ? lane >> 3 : lane - 21;
+      if (lane < 30 && (lane >= 24 || (lane & 7) == 0))
+        stats[((size_t)(b * nb + band) * NSTAT + piece) * nbf + blk] = sum;
+      __syncwarp();  // drow and red are read before the next band writes them
     }
+  }
   }
 }
 
@@ -338,7 +365,7 @@ int launch_stats(const void* x, int B, int L, const void* alpha,
                  void* stream) {
   if (B < 1 || B > 65535 || L < HOP || L % HOP || nb < 1 || taps < 2 ||
       taps - 1 > MAX_K || ncheb < 1 || ncheb > MAX_CHEB ||
-      !(halfwidth > 0.f && halfwidth <= (float)MAX_WTAB))
+      !(halfwidth > 0.f && 2 * (int)ceilf(halfwidth) <= MAX_WTAB))
     return (int)cudaErrorInvalidValue;
   const int nbf = L / HOP, K = taps - 1;
   const size_t tables =
@@ -351,10 +378,20 @@ int launch_stats(const void* x, int B, int L, const void* alpha,
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return (int)rc;
-  const int per_block = SWARPS * RUN;
-  const dim3 grid((nbf + per_block - 1) / per_block, B);
+  // persistent: as many blocks as fit on the card at once, or fewer when
+  // there are fewer runs
+  const long long runs = (long long)B * ((nbf + RUN - 1) / RUN);
+  if (runs > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st == cudaSuccess) st = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (st == cudaSuccess)
+    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SWARPS * 32, smem);
+  if (st != cudaSuccess) return (int)st;
+  const long long wanted = (runs + SWARPS - 1) / SWARPS;
+  const int grid = (int)std::min<long long>(wanted, (long long)std::max(per_sm, 1) * sms);
   kernel<<<grid, SWARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)x, L, nbf, (const float*)alpha, (const float*)beta,
+      (const int16_t*)x, B, L, nbf, (const float*)alpha, (const float*)beta,
       (const int16_t*)halo0, (const float*)cheb, ncheb, halfwidth,
       (const FirT*)fir, (const FirT*)warm, nb, taps, staged, (float*)wsum,
       (float*)rownz, (FirT*)stats);

@@ -242,13 +242,21 @@ LANES, PER_LANE, RUN, RING, MAX_K = 32, 8, 8, 512, 128
 
 def _butterfly(v: torch.Tensor, width: int, up: bool = True) -> torch.Tensor:
     """``__shfl_xor_sync`` sums over groups of ``width`` lanes (dim -1, a
-    power of two) in the kernel's order: offsets 1, 2, ... (the head, delta)
-    or, with ``up=False``, ..., 2, 1 (``warp_sum``)."""
-    lane = torch.arange(LANES, device=v.device)
+    power of two) in the kernel's order: offsets 1, 2, ... (delta, the
+    tail's groups) or, with ``up=False``, ..., 2, 1 (``warp_sum``)."""
+    lane = torch.arange(v.shape[-1], device=v.device)
     offsets = [1 << i for i in range(width.bit_length() - 1)]
     for o in offsets if up else offsets[::-1]:
         v = v + v[..., lane ^ o]
     return v
+
+
+def _in_turn(v: torch.Tensor) -> torch.Tensor:
+    """The sum over dim -1 added in turn, first to last, as one lane does."""
+    acc = v[..., 0]
+    for i in range(1, v.shape[-1]):
+        acc = acc + v[..., i]
+    return acc
 
 
 def stats_lane_steps(
@@ -259,15 +267,17 @@ def stats_lane_steps(
     ``block_stats_reference``'s arguments and outputs (wsum [B, NBF], rownz
     [B, NBF], stats [B, NB, 9, NBF]): every warp's run of RUN hop blocks at
     once; in each block lane l's samples 8l .. 8l+7, their amplitude
-    weights looked up in the Clenshaw series' values at the integers below
-    the halfwidth, the warp's ring of normalized samples with the run's
-    history loaded once and the previous block's tail carried, the FIR as
-    a sliding window of 8 samples a lane
+    weights looked up in the block's table of the Clenshaw series at the
+    2 ceil(halfwidth) values of |s+1| around 1000, the warp's ring of
+    normalized samples with the run's history loaded once and the previous
+    block's tail carried, the FIR as a sliding window of 8 samples a lane
     (one ring read a tap), the per-lane sums over the lane's samples, then
-    the shuffle trees in the kernel's order (the head's and reset's only
-    over the lanes that hold t < K), and the correction delta = M h split
-    over the lanes as the kernel splits it. A test tool on no path: it
-    holds the kernel's indexing to the plain version on the CPU."""
+    the warp's sums in the kernel's order (the tail's 4 lanes at a time and
+    then a shuffle tree over 8 groups, the head's and reset's added in turn
+    over the lanes that hold t < K, wsum by a shuffle tree), and the
+    correction delta = M h split over the lanes as the kernel splits it. A
+    test tool on no path: it holds the kernel's indexing to the plain
+    version on the CPU."""
     tabs = device_tables(nb_bands, band_taps, filterbank, samples.device)
     dev, ft = samples.device, fir_dtype
     B, L = samples.shape
@@ -292,7 +302,6 @@ def stats_lane_steps(
     ring[..., (base - K + torch.arange(K, device=dev)) % RING] = torch.where(h >= 0, hist, before)
 
     H = (K + 7) // 8  # lanes holding head samples
-    H2 = 1 << (H - 1).bit_length()
     G = 1  # lanes sharing a row of M
     while 2 * G * K <= LANES:
         G *= 2
@@ -303,8 +312,9 @@ def stats_lane_steps(
     rstep = LANES // G
     alt = torch.tensor([1.0, -1.0], dtype=ft, device=dev)[t % 2]
     halfwidth = float(tables.amplitude_cdf_poly()[0])
-    nw = math.ceil(halfwidth)
-    wtab = cheb_T(torch.arange(nw, dtype=torch.float32, device=dev), tabs["cheb"], halfwidth)
+    nw = math.ceil(halfwidth)  # the weight at |s+1| = 1001 - nw + i
+    half = cheb_T(torch.arange(nw, dtype=torch.float32, device=dev), tabs["cheb"], halfwidth)
+    wtab = torch.cat([half.flip(0), 1.0 - half])
 
     wsum = torch.zeros(B, NR, RUN, dtype=torch.float32, device=dev)
     rownz = torch.zeros(B, NR, RUN, dtype=torch.float32, device=dev)
@@ -312,11 +322,10 @@ def stats_lane_steps(
     for i in range(RUN):
         s = x[:, :, i].to(torch.float32)  # [B, NR, 32, 8]
         rownz[:, :, i] = (s != 0).flatten(2).any(dim=-1).to(torch.float32)
-        if cheb:  # the series at each integer mf < halfwidth, then a lookup
-            m = 1000.0 - torch.abs(s + 1.0)
-            mf = torch.where(m < 0, -m - 1.0, m).long()
-            val = torch.where(mf < nw, wtab[mf.clamp(max=nw - 1)], 1.0)
-            w = torch.where(m < 0, 1.0 - val, val)
+        if cheb:  # 1 or 0 but at 2 nw values of |s+1| around 1000
+            idx = torch.abs(x[:, :, i].to(torch.int32) + 1) - (1001 - nw)
+            inside = (idx >= 0) & (idx < 2 * nw)
+            w = torch.where(inside, wtab[idx.clamp(0, 2 * nw - 1)], (idx < 0).to(torch.float32))
         else:
             w = s
         ws = w[..., 0]
@@ -342,7 +351,8 @@ def stats_lane_steps(
                 zj, tail = z[..., j], t[:, j] >= K
                 tl = [acc + torch.where(tail, v_, zero)
                       for acc, v_ in zip(tl, (zj, zj * zj, alt[:, j] * zj))]
-            tl = [_butterfly(v_, LANES, up=False)[..., 0] for v_ in tl]
+            # lane 8p + q: lanes 4q .. 4q+3 in turn, then the 8 lanes of p
+            tl = [_butterfly(_in_turn(v_.unflatten(-1, (8, 4))), 8)[..., 0] for v_ in tl]
 
             drow = torch.zeros(B, NR, max(K, 1), dtype=ft, device=dev)
             if warm:
@@ -368,7 +378,7 @@ def stats_lane_steps(
                 aj = alt[:, j]
                 hd = [acc + torch.where(head, v_, zero) for acc, v_ in
                       zip(hd, (zh, zh * zh, aj * zh, y, y * y, aj * y))]
-            hd = [_butterfly(v_, H2)[..., 0] for v_ in hd]
+            hd = [_in_turn(v_[..., :H]) for v_ in hd]
             stats[:, band, :, :, i] = torch.stack(tl + hd, dim=1)
         base += BLK
     return (wsum.reshape(B, -1)[:, :NBF], rownz.reshape(B, -1)[:, :NBF],

@@ -121,8 +121,10 @@ def edge_batch(rng: np.random.Generator):
     quiet_edges = synth_song(rng, L - 1030)  # n not a multiple of 1024
     loud = rng.integers(-32768, 32768, size=L, dtype=np.int16)  # odd l+r
     clicks = synth_song(rng, L - 4094)
-    # loud and positive: its int32 sum wraps; n not a multiple of 8
-    wraps = rng.integers(20000, 32768, size=L - 3, dtype=np.int16)
+    # loud and positive: its int32 sum wraps; n not a multiple of 8. From a
+    # generator of its own, so that the main batch drawn after this one
+    # stays what it was before this song was added
+    wraps = np.random.default_rng(SEED + 2).integers(20000, 32768, size=L - 3, dtype=np.int16)
     return [silent, quiet_edges, loud, clicks, wraps], [L // (2 * SR)] * 5
 
 
