@@ -15,18 +15,9 @@ def c_div(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="trunc")
 
 
-def wrapping_sum_int32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Sum of an integer tensor along ``dim`` that wraps modulo 2**32 like a
-    C ``int`` accumulator, returned as int32.
-
-    ``torch.sum`` widens int32 to int64 and so never wraps; the exact int64
-    sum is reduced mod 2**32 here. Exact while the true sum fits int64,
-    which holds for any int16 input below 2**48 samples.
-    """
-    return wrap_int32(torch.sum(x, dim=dim, dtype=torch.int64))
-
-
 def wrap_int32(s: torch.Tensor) -> torch.Tensor:
     """The low 32 bits of the exact int64 ``s`` as a signed int32: what a C
-    ``int`` accumulator holds after summing to ``s``."""
+    ``int`` accumulator holds after summing to ``s``. ``torch.sum`` widens
+    int32 to int64 and so never wraps; an exact int64 sum of int16 samples
+    reduced here wraps like the C sum."""
     return (torch.remainder(s + 2**31, 2**32) - 2**31).to(torch.int32)

@@ -17,7 +17,7 @@ from bliss_tpu.kernels.fused_stats import trim_bounds_from_rownz as j_trim
 from bliss_tpu.kernels.pallas_stft import frequency_scores_from_power as j_freq
 
 from bliss_tpu_torch.config import AnalysisConfig
-from bliss_tpu_torch.dsp.intops import c_div, wrapping_sum_int32
+from bliss_tpu_torch.dsp.intops import c_div, wrap_int32
 from bliss_tpu_torch.features.analyze import _mask_energies
 from bliss_tpu_torch.features.types import PCMBatch
 from bliss_tpu_torch.kernels import fused_all
@@ -115,7 +115,7 @@ def test_c_div_truncates(a, b):
 
 def test_wrapping_sum_int32():
     x = torch.tensor([[2**31 - 1, 1, 5], [-(2**31), -1, 0]], dtype=torch.int32)
-    assert wrapping_sum_int32(x, dim=1).tolist() == [-(2**31) + 5, 2**31 - 1]
+    assert wrap_int32(x.sum(dim=1, dtype=torch.int64)).tolist() == [-(2**31) + 5, 2**31 - 1]
 
 
 def test_rownz_and_trim_bounds_identical(ref, port):
