@@ -76,11 +76,13 @@ def stats_work(
     return work
 
 
-def prepass_work(B: int, L: int) -> dict:
-    """``prepass_kernel``: reads int16 [B, L] once and writes two int64
-    sums a song. Its integer adds and products are not on the floating-point
-    pipes, so the bytes bound it."""
-    return {"bytes": 2 * B * L + 16 * B}
+def prepass_work(valid: int, B: int) -> dict:
+    """``prepass_kernel`` over ``valid`` = sum_b min(n_b, L) samples that
+    count: reads each once (2 bytes) and the [B] int32 counts, and writes
+    two int64 sums a song; the padding past n_b is no part of its function.
+    Its integer adds and products are not on the floating-point pipes, so
+    the bytes bound it."""
+    return {"bytes": 2 * valid + 4 * B + 16 * B}
 
 
 def power_work(frames: int, B: int) -> dict:

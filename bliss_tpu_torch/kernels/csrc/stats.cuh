@@ -50,7 +50,9 @@
 //     the largest power of two with G*K <= 32), combined by shuffles and
 //     handed to the head lanes through a warp-private row of K values;
 //   - fir and M are staged in shared memory once a block where they fit,
-//     M's rows padded to K+1, else read from global memory.
+//     M's rows padded to K+1, else read from global memory (on an H100
+//     SXM at B=64, L=2^23, 17 taps, reading them through __ldg instead
+//     made the kernel ~9% slower: chip_smoke.py, K2 and A1 "full").
 // Only __syncwarp orders the warp-private shared memory; the one block
 // barrier publishes the staged tables before the loop.
 //

@@ -23,14 +23,16 @@ Phases, one line each, stopping at the first failure:
    same frames;
 4. the main path: ``bliss_tpu_torch.api.analyze_pcm`` on the seeded B=64,
    L=2^23 batch, checked finite, launched through the prepass and K1, and
-   held against the same path with the plain version in place of the
-   kernel;
+   held against the same path with the plain versions of the prepass and K1
+   in place of the kernels; the card-resident ``analyze_batch`` timed (median,
+   least and most of 10) and traced once with ``torch.profiler``: its
+   device kernels, their busy time and the device's idle share;
 5. the two-kernel path (``for_gpu()`` with ``single_pass=False``) through
    ``analyze_batch`` on the card-resident main batch, launched through K2
    and K3 (and the prepass) only, and the hybrid path (``AnalysisConfig.for_gpu_hybrid()``:
    K2, K3, then the float64 host finish) through ``api.analyze_pcm``; each
    counts the same beats as the main path and as itself with the plain
-   versions in place of the kernels;
+   versions (of the prepass, K2 and K3) in place of the kernels;
 6. ``distance_matrix`` of the 64 force vectors against NumPy;
 7. the ablation (``bliss_tpu_torch.ablate``): every variant of A1 (the
    stats kernel's stages), A2 (the read-and-reduce probes) and A3 (the
@@ -128,8 +130,8 @@ def edge_batch(rng: np.random.Generator):
     return [silent, quiet_edges, loud, clicks, wraps], [L // (2 * SR)] * 5
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Warm median over ``reps`` runs, each timed with CUDA events."""
+def cuda_times(fn, reps: int) -> list[float]:
+    """ms of each of ``reps`` warm runs, each timed with CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -141,7 +143,68 @@ def cuda_ms(fn, reps: int = 5) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Warm median over ``reps`` runs, each timed with CUDA events."""
+    return statistics.median(cuda_times(fn, reps))
+
+
+def device_trace(fn):
+    """One warm run of ``fn`` under ``torch.profiler``, read from its
+    exported trace: the span from the call's start on the host to the end
+    of its ``torch.cuda.synchronize``, the device's busy time in it (the
+    union of its kernels, copies and sets), the idle share of the span, the
+    number of kernels and the kernels with the most time. Returns a line of
+    text; "not measured" with the reason where the trace holds no device
+    record."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("traced_call"):
+                fn()
+                torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+    except Exception as exc:  # a trace is a reading, not a gate
+        return f"not measured ({type(exc).__name__}: {exc})"
+    call = [e for e in events if e.get("ph") == "X" and e.get("name") == "traced_call"
+            and e.get("cat") == "user_annotation"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not call or not dev:
+        return f"not measured (the trace holds {len(call)} call and {len(dev)} device records)"
+    t0 = float(call[0]["ts"])
+    t1 = t0 + float(call[0]["dur"])
+    busy, end = 0.0, t0
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev):
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    by_name: dict = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            n, t = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, t + float(e["dur"]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    nk = sum(n for n, _ in by_name.values())
+
+    def short(name):
+        return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")[:60]
+
+    return (f"span {(t1 - t0) / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
+            f"{1 - busy / (t1 - t0):.3f}; {nk} kernels ({len(by_name)} distinct), "
+            f"{len(dev) - nk} copies and sets; most time: " + "; ".join(
+                f"{short(name)} x{n} {t / 1e3:.3f} ms" for name, (n, t) in top))
 
 
 def compare(name, got, ref, denom, tol):
@@ -469,8 +532,9 @@ def main() -> int:
         raise AssertionError(f"main batch shape {tuple(batch.samples.shape)}")
     kernels = check_kernels(batch, "(b) B=64 L=2^23", timed=True, edge=False)
     frames = int(stft.frame_counts(batch.n_samples).clamp(max=MAIN_L // 1024).sum())
+    valid = int(batch.n_samples.to(torch.int64).clamp(max=MAIN_L).sum())
     works = {
-        "prepass": bounds.prepass_work(MAIN_B, MAIN_L),
+        "prepass": bounds.prepass_work(valid, MAIN_B),
         "fused_all": bounds.fused_all_work(MAIN_B, MAIN_L, frames),
         "fused_stats": bounds.stats_work(MAIN_B, MAIN_L),
         "stft_power": bounds.power_work(frames, MAIN_B),
@@ -515,11 +579,15 @@ def main() -> int:
         f"of 3 {warm:.3f} s = {MAIN_B / warm:.1f} songs/s (host padding and "
         f"copy included), peak device memory {peak_gib:.2f} GiB, kernel "
         f"launches prepass {fs.PREPASS_LAUNCHES} fused_all {fa.LAUNCHES} {label}")
-    device_ms = cuda_ms(lambda: analyze_batch(batch, cfg), reps=3)
-    log(f"main path analyze_batch on the card-resident batch: warm median of 3 "
-        f"{device_ms:.1f} ms = {MAIN_B / device_ms * 1e3:.1f} songs/s {label}")
+    times = cuda_times(lambda: analyze_batch(batch, cfg), reps=10)
+    device_ms = statistics.median(times)
+    log(f"main path analyze_batch on the card-resident batch: warm median of 10 "
+        f"{device_ms:.1f} ms = {MAIN_B / device_ms * 1e3:.1f} songs/s (least "
+        f"{min(times):.1f}, most {max(times):.1f} ms) {label}")
+    log(f"main path analyze_batch trace: {device_trace(lambda: analyze_batch(batch, cfg))} {label}")
 
-    with mock.patch.object(fa, "fused_all_call", fa.fused_all_reference):
+    plain_prepass = mock.patch.object(fs, "prepass_sums", fs.prepass_sums_reference)
+    with plain_prepass, mock.patch.object(fa, "fused_all_call", fa.fused_all_reference):
         ref = analyze_batch(batch, cfg).cpu().numpy()
     beats = beat_counts(out, durations)
     col_err = same_scores("main path", out, ref, "the plain-kernel path")
@@ -529,6 +597,7 @@ def main() -> int:
 
     # 5. the two-kernel and hybrid paths
     plain_k2_k3 = (
+        plain_prepass,
         mock.patch.object(fs, "fused_stats_call", fs.fused_stats_reference),
         mock.patch.object(stft, "stft_power", stft.stft_power_reference),
     )
@@ -542,16 +611,19 @@ def main() -> int:
             f"{fa.LAUNCHES}, fused_stats {fs.LAUNCHES}, stft_power {stft.LAUNCHES} "
             f"times; want the prepass, K2 and K3 only"
         )
-    with plain_k2_k3[0], plain_k2_k3[1]:
+    with plain_k2_k3[0], plain_k2_k3[1], plain_k2_k3[2]:
         ref2 = analyze_batch(batch, two).cpu().numpy()
     same_scores("two-kernel path", out2, out, "the main path")
     col_err = same_scores("two-kernel path", out2, ref2, "its plain-kernel run")
-    two_ms = cuda_ms(lambda: analyze_batch(batch, two), reps=3)
+    times = cuda_times(lambda: analyze_batch(batch, two), reps=10)
+    two_ms = statistics.median(times)
     log(f"two-kernel path analyze_batch B=64 L=2^23: launches fused_stats "
         f"{launches['fused_stats']} stft_power {launches['stft_power']}; beat counts "
         f"identical to the main path and its plain-kernel run, max |diff| vs plain "
-        f"{col_err.max():.2e}; card-resident warm median of 3 {two_ms:.1f} ms = "
-        f"{MAIN_B / two_ms * 1e3:.1f} songs/s {label}")
+        f"{col_err.max():.2e}; card-resident warm median of 10 {two_ms:.1f} ms = "
+        f"{MAIN_B / two_ms * 1e3:.1f} songs/s (least {min(times):.1f}, most "
+        f"{max(times):.1f} ms) {label}")
+    log(f"two-kernel path analyze_batch trace: {device_trace(lambda: analyze_batch(batch, two))} {label}")
 
     hyb = AnalysisConfig.for_gpu_hybrid()
     torch.cuda.reset_peak_memory_stats()
@@ -562,7 +634,7 @@ def main() -> int:
     if hyb_launches[0] < 1 or hyb_launches[1] or hyb_launches[2] < 1 or hyb_launches[3] < 1:
         raise AssertionError(
             f"the hybrid path launched (prepass, K1, K2, K3) {hyb_launches} times")
-    with plain_k2_k3[0], plain_k2_k3[1]:
+    with plain_k2_k3[0], plain_k2_k3[1], plain_k2_k3[2]:
         refh = api.analyze_features(batch, hyb)
     same_scores("hybrid path", outh, out, "the main path")
     col_err = same_scores("hybrid path", outh, refh, "its plain-kernel run")

@@ -50,9 +50,14 @@ def test_matred_work_is_the_stats_function_in_its_layout():
 
 
 def test_prepass_bound_is_one_read():
-    """The prepass reads the int16 PCM once and writes two int64 sums a
-    song; its integer arithmetic is on no floating-point pipe."""
-    work = bounds.prepass_work(B, L)
-    assert work == {"bytes": 2 * B * L + 16 * B}
+    """The prepass reads each valid int16 sample once (not the padding past
+    n_b) and the counts, and writes two int64 sums a song; its integer
+    arithmetic is on no floating-point pipe. A full batch reads all B * L
+    samples; one of ~0.86 B L valid samples is bound ~0.86 as long."""
+    work = bounds.prepass_work(B * L, B)
+    assert work == {"bytes": 2 * B * L + 20 * B}
     ms, by = bounds.bound_ms(work)
     assert by == "bytes" and ms == pytest.approx(0.3205, abs=1e-4)
+    part = bounds.prepass_work(int(0.86 * B * L), B)
+    assert part["bytes"] == 2 * int(0.86 * B * L) + 20 * B
+    assert bounds.bound_ms(part)[0] == pytest.approx(0.86 * ms, rel=1e-4)

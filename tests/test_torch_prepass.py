@@ -78,21 +78,29 @@ def test_variance_is_bliss_tpu_exact_int64_variance():
 def test_variance_within_one_ulp_of_jax_float32_prepass():
     """bliss_tpu/kernels/fused_stats.py:388-399 (float32 sum of d^2,
     truncated) on the same input: the exact variance, as the float32 the
-    port normalizes by, is within one float32 ulp of it on every song but
-    the constant -32768 one, where JAX's float32 sum of 70 001 equal
-    squares of ~3.8e9 (its mean wrapped) is 3 ulps off the exact value.
-    4 of the 8 songs differ at all."""
+    port normalizes by, is within one float32 ulp of it on every song whose
+    JAX float32 sum of d^2 is itself within an ulp of the exact sum. Where
+    that sum drifts further (the constant -32768 song: its mean wrapped, so
+    it adds 70 001 equal squares of ~3.8e9), the difference is the drift
+    plus at most an ulp. How many songs differ at all follows XLA's order
+    of summation, not the port (4 of the 8 on the CPU when this was
+    written)."""
     x, n = _batch()
     mean = _jax_mean(x, n)
     valid = jnp.asarray(_valid(n))
     d = jnp.where(valid, jnp.asarray(x).astype(jnp.int32) - mean[:, None], 0).astype(jnp.float32)
+    j_sum = np.asarray(jnp.sum(d * d, axis=1)).astype(np.float64)
     j_var = np.asarray(jnp.trunc(jnp.sum(d * d, axis=1) / jnp.asarray(n).astype(jnp.float32)))
+    d64 = np.where(_valid(n), x.astype(np.int64) - np.asarray(mean, np.int64)[:, None], 0)
+    exact = (d64 * d64).sum(axis=1)
+    drift = np.abs(j_sum - exact) / np.spacing(exact.astype(np.float32))
     alpha, beta, _ = fs.normalization(torch.from_numpy(x), torch.from_numpy(n))
     _, p_var = fs.mean_variance(torch.from_numpy(x), torch.from_numpy(n))
     p_var = p_var.numpy().astype(np.float32)
     ulps = np.abs(p_var - j_var) / np.spacing(j_var)
-    assert (np.delete(ulps, 2) <= 1).all() and ulps[2] == 3, ulps
-    assert int((p_var != j_var).sum()) == 4
+    near = drift <= 1
+    assert near.any() and (ulps[near] <= 1).all(), (ulps, drift)
+    assert (ulps[~near] <= np.ceil(drift[~near]) + 1).all(), (ulps, drift)
     # a silent song still normalizes to inf/NaN, as before
     assert np.isinf(alpha[3].item()) and not np.isfinite(beta[3].item())
     assert np.isfinite(alpha.numpy()[[0, 1, 2, 4, 5, 6, 7]]).all()
