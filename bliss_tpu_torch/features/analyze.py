@@ -124,17 +124,33 @@ def _unpack_stage(packed: np.ndarray, cfg: AnalysisConfig, L: int):
     return amp, freq, fa
 
 
+def launch_hybrid(batch: PCMBatch, cfg: AnalysisConfig):
+    """The launch half of ``analyze_batch_hybrid``: queue the device stage
+    and return ``finish(n_samples, durations)``, which takes the host
+    (NumPy) counts and durations, copies the packed result back, runs the
+    float64 envelope finish and gives [B, 4] float32 NumPy force vectors.
+    The callable holds the device result, never the batch, so it may run
+    on another thread while the caller launches more work."""
+    check_supported(cfg)
+    packed = _device_stage_packed(batch, cfg)
+    L = batch.samples.shape[1]
+
+    def finish(n_samples: np.ndarray, durations: np.ndarray) -> np.ndarray:
+        amplitude, frequency, fa = _unpack_stage(packed.cpu().numpy(), cfg, L)
+        tempo, attack = envelope_finish_host(fa, n_samples, durations)
+        return np.stack([tempo, amplitude, frequency, attack], axis=1)
+
+    return finish
+
+
 def analyze_batch_hybrid(batch: PCMBatch, cfg: AnalysisConfig) -> torch.Tensor:
     """[B, 4] float32 force vectors on the CPU: the device stage on the
     batch's device, one copy back, then the float64 NumPy/SciPy envelope
     finish on the host."""
-    check_supported(cfg)
-    packed = _device_stage_packed(batch, cfg).cpu().numpy()
-    amplitude, frequency, fa = _unpack_stage(packed, cfg, batch.samples.shape[1])
-    tempo, attack = envelope_finish_host(
-        fa, batch.n_samples.cpu().numpy(), batch.durations.cpu().numpy()
+    finish = launch_hybrid(batch, cfg)
+    return torch.from_numpy(
+        finish(batch.n_samples.cpu().numpy(), batch.durations.cpu().numpy())
     )
-    return torch.from_numpy(np.stack([tempo, amplitude, frequency, attack], axis=1))
 
 
 def force_and_class(features: torch.Tensor):

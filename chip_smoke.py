@@ -42,7 +42,21 @@ Phases, one line each, stopping at the first failure:
    are timed too; A3's numerics report against the shipped stats kernel;
    then the ablation's own path,
    ``bliss_tpu_torch.ablate.breakdown.run`` at both shapes, which times every
-   variant and must launch each of A1, A2 and A3.
+   variant and must launch each of A1, A2 and A3;
+8. the library pipeline (``bliss_tpu_torch.pipeline``): (a) its loop after
+   decode, ``pipeline._scan``, fed 192 decoded songs of the main batch's
+   lengths (the main batch, each song reversed, each rotated by a third) at
+   B=64 under ``for_gpu()`` and under ``for_gpu_hybrid()``: every row ok,
+   beat counts identical to a card-resident ``analyze_features`` of the same
+   songs at L=2^23 and the other columns within 1e-3 (so across the two
+   buckets the songs fall into, 6291456 and 2^23), launched through the
+   prepass and K1 (main) or the prepass, K2 and K3 (hybrid); it prints the
+   ``StageTimer`` report, songs/s and the host-to-device copy of one padded
+   batch; (b) where ``pkg-config`` finds libav's development files, files:
+   a FLAC library of 8 songs of ~30 s (one at 44.1 kHz) and a broken file,
+   scanned by ``analyze_library`` into a ``FeatureStore`` and resumed from
+   it, and ``Song`` and ``distance_file`` on two of the files; where it
+   does not, one line says the file phase is left out.
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -156,7 +170,8 @@ def device_trace(fn):
     exported trace: the span from the call's start on the host to the end
     of its ``torch.cuda.synchronize``, the device's busy time in it (the
     union of its kernels, copies and sets), the idle share of the span, the
-    number of kernels and the kernels with the most time. Returns a line of
+    number of kernels and their summed time, the copies' and sets' summed
+    time, and the kernels with the most time. Returns a line of
     text; "not measured" with the reason where the trace holds no device
     record."""
     import tempfile
@@ -201,9 +216,11 @@ def device_trace(fn):
     def short(name):
         return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")[:60]
 
+    copy_us = sum(float(e["dur"]) for e in dev if e["cat"] != "kernel")
     return (f"span {(t1 - t0) / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
-            f"{1 - busy / (t1 - t0):.3f}; {nk} kernels ({len(by_name)} distinct), "
-            f"{len(dev) - nk} copies and sets; most time: " + "; ".join(
+            f"{1 - busy / (t1 - t0):.3f}; {nk} kernels ({len(by_name)} distinct, "
+            f"{sum(t for _, t in by_name.values()) / 1e3:.3f} ms), {len(dev) - nk} copies and "
+            f"sets ({copy_us / 1e3:.3f} ms); most time: " + "; ".join(
                 f"{short(name)} x{n} {t / 1e3:.3f} ms" for name, (n, t) in top))
 
 
@@ -470,8 +487,8 @@ def beat_counts(out, durations):
 def same_scores(label, out, ref, what):
     """Beat counts (the tempo column) identical on every song, the other
     columns within 1e-3."""
-    if out.shape != (MAIN_B, 4) or not np.isfinite(out).all():
-        raise AssertionError(f"{label} output not finite [64, 4]: {out}")
+    if out.shape != ref.shape or not np.isfinite(out).all():
+        raise AssertionError(f"{label} output not finite {list(ref.shape)}: {out}")
     if not np.array_equal(out[:, 0], ref[:, 0]):
         bad = np.nonzero(out[:, 0] != ref[:, 0])[0]
         raise AssertionError(f"{label}: beat counts differ from {what} at songs {bad}")
@@ -479,6 +496,150 @@ def same_scores(label, out, ref, what):
     if not (col_err <= 1e-3).all():
         raise AssertionError(f"{label}: amplitude/frequency/attack differ from {what}: {col_err}")
     return col_err
+
+
+def launch_counts() -> dict:
+    from bliss_tpu_torch.kernels import fused_all as fa
+    from bliss_tpu_torch.kernels import fused_stats as fs
+    from bliss_tpu_torch.kernels import stft
+
+    return {"prepass": fs.PREPASS_LAUNCHES, "fused_all": fa.LAUNCHES,
+            "fused_stats": fs.LAUNCHES, "stft_power": stft.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from bliss_tpu_torch.kernels import fused_all as fa
+    from bliss_tpu_torch.kernels import fused_stats as fs
+    from bliss_tpu_torch.kernels import stft
+
+    fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
+
+
+STAGES = ("pad", "device_dispatch", "device_finalize", "finalize_wait", "scan")
+
+
+def stage_line(stats: dict) -> str:
+    return "; ".join(
+        f"{s} {stats[s]['seconds']:.3f} s wall, {stats[s]['cpu_seconds']:.3f} s cpu, "
+        f"x{stats[s]['count']}" for s in STAGES if s in stats)
+
+
+def scan_phase(songs, durs, cfg, name, device, batch_size, label, runs=3, trace=True):
+    """Phase 8 (a): ``pipeline._scan`` (``analyze_library``'s loop after
+    decode) on ``songs`` as decoded audio, ``runs`` times, each run held
+    against ``api.analyze_features`` of the same songs in batches of
+    ``batch_size`` on ``device``, and each run's launches counted: the
+    kernels that ``cfg``'s path runs must launch and no other. Then, with
+    ``trace``, one more run under ``torch.profiler``. Returns the last
+    run's launches."""
+    from bliss_tpu_torch import api, pipeline
+    from bliss_tpu_torch.features.types import PCMBatch
+    from bliss_tpu_torch.io import DecodedAudio
+    from bliss_tpu_torch.utils import StageTimer
+
+    ref = np.concatenate([
+        api.analyze_features(PCMBatch.from_arrays(
+            songs[k:k + batch_size], durs[k:k + batch_size], device=device), cfg)
+        for k in range(0, len(songs), batch_size)])
+    decoded = [DecodedAudio(s, 2, SR, 0, 2, 0, d, f"synth-{i}", "", "", "", "", "")
+               for i, (s, d) in enumerate(zip(songs, durs))]
+    n = len(decoded)
+    buckets = {}
+    for d in decoded:
+        L = pipeline._bucket_length(d.n_samples, cfg.pad_multiple)
+        buckets[L] = buckets.get(L, 0) + 1
+
+    def one_scan():
+        result = pipeline.ScanResult([d.filename for d in decoded],
+                                     np.full((n, 4), np.nan, np.float32), np.zeros(n, bool), {}, {})
+        timer = StageTimer()
+        cancelled = pipeline._scan(result, enumerate(decoded), cfg=cfg, batch_size=batch_size,
+                                   device=torch.device(device), timer=timer)
+        return result, timer.report(), cancelled
+
+    want = {"prepass", "fused_all"} if cfg.single_pass else {"prepass", "fused_stats", "stft_power"}
+    for run in range(1, runs + 1):
+        reset_counts()
+        result, stats, cancelled = one_scan()
+        launches = launch_counts()
+        if {k for k, v in launches.items() if v} != want:
+            raise AssertionError(f"the {name} scan launched {launches}; want {sorted(want)} only")
+        if cancelled or result.errors or not result.ok.all():
+            raise AssertionError(f"the {name} scan: cancelled {cancelled}, errors {result.errors}, "
+                                 f"ok {int(result.ok.sum())} of {n}")
+        col_err = same_scores(f"{name} scan", result.features, ref,
+                              "analyze_features of the same songs at L=2^23")
+        log(f"pipeline (a) {name} scan {run} of {n} songs at B={batch_size}, buckets "
+            f"{dict(sorted(buckets.items()))}: launches {launches}; every row ok, beat counts "
+            f"identical to analyze_features of the same songs, max |diff| amplitude "
+            f"{col_err[0]:.2e} frequency {col_err[1]:.2e} attack {col_err[2]:.2e}; "
+            f"{stage_line(stats)}; {n / stats['scan']['seconds']:.1f} songs/s over the scan {label}")
+    if trace:
+        log(f"pipeline (a) {name} scan trace: {device_trace(one_scan)} {label}")
+    return launches
+
+
+def libav_present() -> bool:
+    """Whether ``pkg-config`` finds the libav development files that the
+    port's native decoder builds against."""
+    if shutil.which("pkg-config") is None:
+        return False
+    return subprocess.run(
+        ["pkg-config", "--exists", "libavformat", "libavcodec", "libavutil", "libswresample"],
+        timeout=60).returncode == 0
+
+
+def file_phase(rng, device, seconds: float, label: str) -> None:
+    """Phase 8 (b): a FLAC library of 8 songs of ``seconds`` each (song 3
+    at 44.1 kHz, so that the resampler runs) and a broken file, written
+    with the port's ``write_flac``; ``analyze_library`` into a
+    ``FeatureStore`` (the broken file in ``errors`` with a NaN row), a
+    second scan resumed from the store, then ``Song`` and
+    ``distance_file`` on two of the files."""
+    import tempfile
+
+    from bliss_tpu_torch import api
+    from bliss_tpu_torch.io import decode
+    from bliss_tpu_torch.io.flac_writer import write_flac
+    from bliss_tpu_torch.pipeline import analyze_library
+    from bliss_tpu_torch.store import FeatureStore
+
+    with tempfile.TemporaryDirectory() as d:
+        files = []
+        for i in range(8):
+            sr = 44100 if i == 3 else SR
+            n = 2 * int(seconds * sr)
+            files.append(os.path.join(d, f"song{i}.flac"))
+            write_flac(files[-1], synth_song(rng, n).reshape(-1, 2), sr, tags={"TITLE": f"song {i}"})
+        broken = os.path.join(d, "broken.flac")
+        with open(broken, "wb") as f:
+            f.write(b"fLaC" + bytes(4096))
+        files.insert(5, broken)
+        t0 = time.perf_counter()
+        first = analyze_library(files, store=FeatureStore(os.path.join(d, "store")), device=device)
+        first_s = time.perf_counter() - t0
+        if list(first.errors) != [broken] or not np.isnan(first.features[5]).all() \
+                or first.ok.sum() != 8 or not np.isfinite(first.features[first.ok]).all():
+            raise AssertionError(f"file scan: errors {first.errors}, ok {first.ok}, "
+                                 f"rows {first.features}")
+        again = analyze_library(files, store=FeatureStore(os.path.join(d, "store")), device=device)
+        if again.stats.get("device_dispatch", {"count": 0})["count"] or \
+                not np.array_equal(again.features, first.features, equal_nan=True):
+            raise AssertionError(f"file rescan did not resume every row from the store: {again.stats}")
+        if decode(files[3]).resampled != 1:
+            raise AssertionError("the 44.1 kHz file was not resampled")
+        song = api.Song(files[0], device=device)
+        same_scores("Song", song.force_vector.as_array()[None], first.features[:1],
+                    "its row in the scan")
+        dist = api.distance_file(files[0], files[1], device=device)
+        want = float(np.linalg.norm(first.features[0].astype(np.float64) - first.features[1]))
+        if not abs(dist - want) <= 1e-3:
+            raise AssertionError(f"distance_file {dist} against the scan's rows {want}")
+    log(f"pipeline (b) files: 8 FLAC songs of {seconds:.0f} s (one at 44.1 kHz, resampled) and a "
+        f"broken file: first scan {first_s:.2f} s, broken file in errors with a NaN row; second "
+        f"scan resumed all 8 rows from the store; Song and distance_file ({dist:.4f}) agree with "
+        f"the scan's rows; stages {stage_line(first.stats)}; decode {first.stats['decode_cpu_seconds']} "
+        f"s cpu {label}")
 
 
 def main() -> int:
@@ -555,7 +716,7 @@ def main() -> int:
     if cfg != AnalysisConfig.for_gpu():
         raise AssertionError(f"default_config() is not for_gpu(): {cfg}")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = api.analyze_pcm(arrays, durations, device="cuda")
     cold_s = time.perf_counter() - t0
@@ -602,7 +763,7 @@ def main() -> int:
         mock.patch.object(stft, "stft_power", stft.stft_power_reference),
     )
     two = AnalysisConfig(**{**dataclasses.asdict(cfg), "single_pass": False})
-    fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
+    reset_counts()
     out2 = analyze_batch(batch, two).cpu().numpy()
     launches["fused_stats"], launches["stft_power"] = fs.LAUNCHES, stft.LAUNCHES
     if fa.LAUNCHES or fs.LAUNCHES < 1 or stft.LAUNCHES < 1 or fs.PREPASS_LAUNCHES < 1:
@@ -627,7 +788,7 @@ def main() -> int:
 
     hyb = AnalysisConfig.for_gpu_hybrid()
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
+    reset_counts()
     outh = api.analyze_pcm(arrays, durations, cfg=hyb, device="cuda")
     hyb_launches = (fs.PREPASS_LAUNCHES, fa.LAUNCHES, fs.LAUNCHES, stft.LAUNCHES)
     hyb_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -703,6 +864,35 @@ def main() -> int:
     log(f"ablation path: launches A1 {ab_fused.LAUNCHES}, A2 {probe.LAUNCHES}, "
         f"A3 {matred.LAUNCHES} {label}")
 
+    # 8. the library pipeline: (a) its loop after decode at full width, on
+    # the main batch's songs and two variants of each (reversed, rotated by
+    # a third): 192 songs, the same lengths, so two full B=64 batches at
+    # 2^23 and the rest in the 6291456 and 2^23 buckets
+    songs = list(arrays) + [a[::-1].copy() for a in arrays] + [
+        np.roll(a, a.shape[0] // 3) for a in arrays]
+    scan_launches = {}
+    for name, scfg in (("main", cfg), ("hybrid", hyb)):
+        scan_launches[name] = scan_phase(songs, durations * 3, scfg, name, "cuda", MAIN_B, label)
+    block = batch.samples.cpu().numpy()
+    copies = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        torch.from_numpy(block).to("cuda")
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    h2d = statistics.median(copies)
+    log(f"pipeline (a) host-to-device copy of one padded batch (B=64, L=2^23, "
+        f"{block.nbytes / 2**30:.2f} GiB, pageable, inside device_dispatch): median of 3 "
+        f"{h2d:.3f} s = {block.nbytes / h2d / 1e9:.2f} GB/s {label}")
+    del block, songs
+    # (b) files, where the native decoder can be built
+    if libav_present():
+        file_phase(np.random.default_rng(SEED + 3), "cuda", 30.0, label)
+    else:
+        log("pipeline (b) files: left out: pkg-config finds no libav development files "
+            "(libavformat, libavcodec, libavutil, libswresample) on this machine, so the "
+            "native decoder cannot be built here; file decode is checked on the CPU only")
+
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
@@ -755,6 +945,8 @@ def main() -> int:
         })
     for e in entries:
         e.update(route="cuda", launches=launches[e["name"]], library_ms=library[e["name"]])
+        if e["name"] in scan_launches["main"]:
+            e["scan_launches"] = {k: v[e["name"]] for k, v in scan_launches.items()}
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

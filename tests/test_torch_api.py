@@ -1,0 +1,161 @@
+"""The port's Song API against bliss_tpu's on the same FLAC files: the
+Mapping fields, force, calm_or_loud, analyze, distance and cosine on
+filenames, the legacy ``*_file`` status codes, and the methods and options
+the port does not run yet."""
+
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import synth_pcm
+import bliss_tpu
+from bliss_tpu.config import AnalysisConfig as JConfig
+from bliss_tpu.io.flac_writer import write_flac
+
+import bliss_tpu_torch
+from bliss_tpu_torch import api
+from bliss_tpu_torch.config import AnalysisConfig
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="session")
+def files(tmp_path_factory):
+    """Two songs of the same length (one shape for bliss_tpu to compile:
+    73728 samples, over the 65536 at which its Pallas kernels run) and a
+    broken file."""
+    d = tmp_path_factory.mktemp("torch_api")
+    out = []
+    for i, amp in enumerate((12000, 2500)):
+        pcm = synth_pcm(np.random.RandomState(80 + i), 72_000, amp=amp)
+        out.append(str(d / f"song{i}.flac"))
+        write_flac(out[-1], pcm.reshape(-1, 2), 22050,
+                   tags={"ARTIST": "synth", "TITLE": f"song {i}", "ALBUM": "tests"})
+    bad = d / "broken.flac"
+    bad.write_bytes(b"\x00" * 2048)
+    out.append(str(bad))
+    return out
+
+
+@pytest.fixture(scope="session")
+def jax_songs(files):
+    songs = []
+    for f in files[:2]:
+        s = bliss_tpu.Song()
+        s.analyze(f, cfg=JConfig.for_tpu())
+        songs.append(s)
+    return songs
+
+
+@pytest.fixture(scope="session")
+def port_songs(files):
+    return [bliss_tpu_torch.Song(f, device="cpu") for f in files[:2]]
+
+
+def test_song_fields_match_jax(jax_songs, port_songs):
+    assert bliss_tpu_torch.Song._FIELDS == bliss_tpu.Song._FIELDS
+    for got, ref in zip(port_songs, jax_songs):
+        assert list(got) == list(ref) and len(got) == len(ref)
+        for key in got:
+            if key == "sample_array":
+                np.testing.assert_array_equal(got[key], ref[key])
+            elif key not in ("force_vector", "force"):
+                assert got[key] == ref[key], key
+        fv, rfv = got["force_vector"], ref["force_vector"]
+        assert list(fv) == list(rfv)
+        assert fv["tempo"] == rfv["tempo"]  # equal beat counts
+        for k in ("amplitude", "frequency", "attack"):
+            assert abs(fv[k] - rfv[k]) <= 1e-3, k
+        assert abs(got.force - ref.force) <= 3e-3
+
+
+def test_analyze_and_hybrid_config(files, port_songs):
+    s = bliss_tpu_torch.analyze(files[0], device="cpu")
+    assert isinstance(s, bliss_tpu_torch.Song)
+    np.testing.assert_array_equal(s.force_vector.as_array(), port_songs[0].force_vector.as_array())
+    h = bliss_tpu_torch.analyze(files[0], cfg=AnalysisConfig.for_gpu_hybrid(), device="cpu")
+    assert h.force_vector.tempo == s.force_vector.tempo
+    np.testing.assert_allclose(h.force_vector.as_array(), s.force_vector.as_array(), atol=1e-3)
+
+
+def test_distance_and_cosine_take_files_songs_and_vectors(files, jax_songs, port_songs):
+    a, b = port_songs
+    va, vb = a.force_vector.as_array(), b.force_vector.as_array()
+    d = float(np.linalg.norm(va.astype(np.float64) - vb))
+    cos = float(va @ vb / np.linalg.norm(va) / np.linalg.norm(vb))
+    for x, y in ((files[0], files[1]), (a, b), (a.force_vector, b.force_vector), (va, vb)):
+        assert abs(bliss_tpu_torch.distance(x, y, device="cpu") - d) <= 1e-5
+        assert abs(bliss_tpu_torch.cosine_similarity(x, y, device="cpu") - cos) <= 1e-5
+    assert abs(bliss_tpu_torch.distance_file(files[0], files[1], device="cpu") - d) <= 1e-5
+    assert abs(bliss_tpu_torch.cosine_similarity_file(files[0], files[1], device="cpu") - cos) <= 1e-5
+    assert abs(d - bliss_tpu.distance(*jax_songs)) <= 3e-3
+
+
+@pytest.mark.parametrize("fn", ["distance_file", "cosine_similarity_file"])
+def test_file_functions_return_unexpected_on_a_broken_file(files, fn):
+    got = getattr(bliss_tpu_torch, fn)(files[0], files[2], device="cpu")
+    assert got == getattr(bliss_tpu, fn)(files[0], files[2]) == -2.0
+    with pytest.raises(bliss_tpu_torch.io.DecodeError):
+        bliss_tpu_torch.Song(files[2], device="cpu")
+
+
+@pytest.mark.parametrize(
+    "method, item",
+    [("amplitude_analysis", "M7"), ("frequency_analysis", "M7"),
+     ("envelope_analysis", "M7"), ("extended_analysis", "M8")],
+)
+def test_unported_methods_raise(port_songs, method, item):
+    with pytest.raises(NotImplementedError, match=item):
+        getattr(port_songs[0], method)()
+
+
+def test_mapping_interface():
+    s = bliss_tpu_torch.Song(initial_values={"title": "t", "force_vector": {"tempo": 1.0}}, device="cpu")
+    assert s["title"] == "t" and s.force_vector == api.ForceVector(tempo=1.0)
+    assert s["force_vector"] == {"tempo": 1.0, "amplitude": 0.0, "frequency": 0.0, "attack": 0.0}
+    assert s["calm_or_loud"] == bliss_tpu_torch.BL_UNKNOWN
+    with pytest.raises(KeyError):
+        s["device"]
+    with pytest.raises(KeyError):
+        s["nope"] = 1
+    s.sample_array = np.zeros(4, np.int16)
+    with s:
+        pass
+    assert s.sample_array is None
+    with pytest.raises(ValueError, match="no filename"):
+        s.decode()
+
+
+def test_a_long_song_is_logged_and_analyzed_whole(files, port_songs):
+    """Streaming is ROADMAP M5: above LONG_SONG_SAMPLES a song is logged
+    and analyzed whole, to the same vector."""
+    events = []
+    with mock.patch.object(api, "LONG_SONG_SAMPLES", 50_000), \
+            mock.patch.object(api, "log_event", lambda lg, msg, **kw: events.append(msg)):
+        s = bliss_tpu_torch.Song(files[0], device="cpu")
+    assert len(events) == 1 and "M5" in events[0]
+    np.testing.assert_array_equal(s.force_vector.as_array(), port_songs[0].force_vector.as_array())
+    assert api.LONG_SONG_SAMPLES == bliss_tpu.api.LONG_SONG_SAMPLES
+
+
+def test_version_and_exports():
+    assert bliss_tpu_torch.version() == bliss_tpu.version() == bliss_tpu_torch.__version__
+    assert set(bliss_tpu.__all__) <= set(bliss_tpu_torch.__all__)
+    assert bliss_tpu_torch.BL_UNEXPECTED == bliss_tpu.BL_UNEXPECTED
+
+
+def test_entry_points_default_to_the_gpu(files):
+    """Without ``device`` every entry point that analyzes runs on the GPU;
+    where there is none it raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default runs there")
+    for call in (
+        lambda: bliss_tpu_torch.Song(files[0]),
+        lambda: bliss_tpu_torch.analyze(files[0]),
+        lambda: bliss_tpu_torch.distance_file(files[0], files[1]),
+        lambda: bliss_tpu_torch.cosine_similarity_file(files[0], files[1]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -3,7 +3,9 @@ interpreter in which ``jax``, ``ml_dtypes`` and ``bliss_tpu`` cannot be
 imported runs ``analyze_pcm`` on the CPU, under the main path's config and
 the hybrid config (two kernels, then the NumPy/SciPy host finish), imports
 every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant,
-and runs the prepass sums and the stats kernel's CPU twin."""
+runs the prepass sums and the stats kernel's CPU twin, and writes two FLAC
+files with the port's writer and scans them with the port's
+``analyze_library`` on the CPU (the native decoder built at first use)."""
 
 import os
 import subprocess
@@ -44,6 +46,21 @@ assert s1.dtype == s2.dtype == torch.int64 and int(s2[1]) > 0, (s1, s2)
 twin = fs.stats_lane_steps(x16, *ab, nb_bands=1, band_taps=17, filterbank="firwin")
 ref = fs.block_stats_reference(x16, *ab, nb_bands=1, band_taps=17, filterbank="firwin")
 assert torch.equal(twin[1], ref[1]) and torch.allclose(twin[2], ref[2], rtol=1e-12, atol=1e-12)
+import tempfile
+from bliss_tpu_torch.io import decode
+from bliss_tpu_torch.io.flac_writer import write_flac
+from bliss_tpu_torch.pipeline import analyze_library
+with tempfile.TemporaryDirectory() as d:
+    files = [f"{d}/a.flac", f"{d}/b.flac"]
+    longer = np.tile(song, 2)  # over a second once padded: a finite tempo
+    write_flac(files[0], longer.reshape(-1, 2), 22050)
+    write_flac(files[1], longer[:50_000].reshape(-1, 2), 22050)
+    scan = analyze_library(files, batch_size=2, device="cpu", handle_sigint=False)
+    pcm = [decode(f) for f in files]
+assert scan.ok.all() and not scan.errors and np.isfinite(scan.features).all(), scan
+direct = bliss_tpu_torch.analyze_pcm([p.samples for p in pcm], [p.duration for p in pcm], device="cpu")
+assert np.array_equal(scan.features[:, 0], direct[:, 0]), (scan.features, direct)
+assert np.abs(scan.features - direct).max() <= 1e-5, (scan.features, direct)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())

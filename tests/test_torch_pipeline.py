@@ -1,0 +1,260 @@
+"""The port's library pipeline against bliss_tpu.pipeline.analyze_library on
+the same synthetic FLAC library: rows, ok flags, errors and stats keys;
+padding invariance; store resume, cancellation and cross-package stores."""
+
+import dataclasses
+import threading
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import synth_pcm
+from test_torch_slice import _check_force_vectors
+from bliss_tpu import pipeline as jpipeline
+from bliss_tpu.config import AnalysisConfig as JConfig
+from bliss_tpu.io.flac_writer import write_flac
+from bliss_tpu.store import FeatureStore as JStore
+
+from bliss_tpu_torch import pipeline
+from bliss_tpu_torch.config import AnalysisConfig
+from bliss_tpu_torch.features.analyze import analyze_batch
+from bliss_tpu_torch.features.types import PCMBatch
+from bliss_tpu_torch.store import FeatureStore
+
+torch.set_num_threads(1)
+
+# (samples written, channels, sample rate); write_flac pads each file to
+# whole 4096-frame blocks and decode gives interleaved stereo at 22.05 kHz.
+# At batch_size 2 the five songs (73728..98304 samples) share the 98304
+# bucket, in batches of 2, 2 and 1 plus a dummy row; the clip (49152
+# samples, 1 s) has its own, under the 65536 at which bliss_tpu's Pallas
+# kernels take over from its XLA path. Two shapes keep bliss_tpu's compile
+# time down.
+SONGS = [
+    (70_000, 2, 22050),
+    (40_000, 1, 22050),  # mono: 81920 samples once upmixed
+    (150_000, 2, 44100),  # resampled: 77824 samples
+    (80_000, 2, 22050),
+    (95_000, 2, 22050),  # 98304 samples: the longest
+    (49_152, 2, 22050),  # the clip
+]
+BROKEN_AT = 3
+
+
+def _write_library(d):
+    files = []
+    for i, (n, ch, sr) in enumerate(SONGS):
+        rng = np.random.RandomState(60 + i)
+        pcm = synth_pcm(rng, n, amp=int(rng.randint(3000, 14000)))
+        files.append(str(d / f"song{i}.flac"))
+        write_flac(files[-1], pcm.reshape(-1, ch), sr, tags={"TITLE": f"song {i}"})
+    bad = d / "broken.flac"
+    bad.write_bytes(b"not audio at all")
+    files.insert(BROKEN_AT, str(bad))
+    return files
+
+
+@pytest.fixture(scope="session")
+def scans(tmp_path_factory):
+    """One scan of the library by each package, each into a store of its
+    own."""
+    d = tmp_path_factory.mktemp("torch_pipeline")
+    files = _write_library(d)
+    ref = jpipeline.analyze_library(
+        files, cfg=JConfig.for_tpu(), batch_size=2, long_song_samples=None,
+        store=JStore(str(d / "jax_store")), handle_sigint=False,
+    )
+    port = pipeline.analyze_library(
+        files, cfg=AnalysisConfig.for_gpu(), batch_size=2, device="cpu",
+        store=FeatureStore(str(d / "port_store")), handle_sigint=False,
+    )
+    return {"dir": d, "files": files, "ref": ref, "port": port}
+
+
+def _check_rows(port, ref):
+    assert port.files == ref.files
+    assert port.ok.tolist() == ref.ok.tolist()
+    assert port.errors == ref.errors
+    assert np.isnan(port.features[~port.ok]).all()
+    _check_force_vectors(port.features[port.ok], ref.features[ref.ok])
+
+
+def test_analyze_library_matches_jax(scans):
+    port, ref = scans["port"], scans["ref"]
+    _check_rows(port, ref)
+    assert port.ok.sum() == len(SONGS) and list(port.errors) == [scans["files"][BROKEN_AT]]
+    assert port.extended is None
+    np.testing.assert_allclose(port.force(), ref.force(), rtol=0, atol=3e-3, equal_nan=True)
+
+
+def test_stats_carry_the_same_stages_as_jax(scans):
+    port, ref = scans["port"].stats, scans["ref"].stats
+    assert sorted(port) == sorted(ref)
+    for stage in ("pad", "device_dispatch", "device_finalize", "finalize_wait", "scan"):
+        assert set(port[stage]) == {"seconds", "cpu_seconds", "count"}
+        assert port[stage]["count"] == ref[stage]["count"]
+    assert port["decoded"] == ref["decoded"] == len(SONGS) + 1
+    assert port["errors"] == 1 and port["cancelled"] is False
+
+
+def test_hybrid_config_matches_jax(scans):
+    port = pipeline.analyze_library(
+        scans["files"], cfg=AnalysisConfig.for_gpu_hybrid(), batch_size=2,
+        device="cpu", handle_sigint=False,
+    )
+    _check_rows(port, scans["ref"])
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1024, 49_152, 49_153, 65_536, 300_000, 6_000_000, 1 << 23])
+def test_bucket_length_matches_jax(n):
+    assert pipeline._bucket_length(n, 1024) == jpipeline._bucket_length(n, 1024)
+
+
+def test_a_song_gives_the_same_vector_alone_and_in_a_longer_bucket():
+    """Padding invariance: the row of a song does not depend on its bucket
+    length or on its batch mates (the store key leaves pad_multiple out on
+    that ground), up to the float32 summation order of the amplitude."""
+    rng = np.random.RandomState(12)
+    song = synth_pcm(rng, 90_000)
+    long_mate = synth_pcm(rng, 200_000, amp=3000)
+    cfg = AnalysisConfig.for_gpu()
+    alone = analyze_batch(PCMBatch.from_arrays([song], [2], device="cpu"), cfg).numpy()
+    batch = PCMBatch.from_arrays([long_mate, song], [4, 2], pad_multiple=65536, device="cpu")
+    assert batch.samples.shape[1] == 262_144
+    mixed = analyze_batch(batch, cfg).numpy()
+    # beats, frequency and attack identical; the amplitude integral sums the
+    # padding's blocks in float32 too, so its order moves with L by an ulp
+    # or so, as in bliss_tpu's for_tpu() (6.2e-6 on this song)
+    assert np.array_equal(mixed[1, [0, 2, 3]], alone[0, [0, 2, 3]])
+    np.testing.assert_allclose(mixed[1, 1], alone[0, 1], rtol=0, atol=1e-5)
+
+
+def test_store_resumes_every_row(scans):
+    store = FeatureStore(str(scans["dir"] / "port_store"))  # fresh load from disk
+    assert len(store) == len(SONGS)
+    again = pipeline.analyze_library(
+        scans["files"], cfg=AnalysisConfig.for_gpu(), batch_size=2, device="cpu",
+        store=store, handle_sigint=False,
+    )
+    assert again.stats.get("device_dispatch", {"count": 0})["count"] == 0
+    # only the broken file is decoded again: it never reached the store
+    assert again.stats["decoded"] == 1
+    np.testing.assert_array_equal(again.features, scans["port"].features)
+    assert again.ok.tolist() == scans["port"].ok.tolist()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_store_written_by_one_package_resumes_in_the_other(scans, writer):
+    """Same on-disk format and the same config key: for_gpu() has for_tpu()'s
+    field values, so each package's scan resumes from the other's store."""
+    path = str(scans["dir"] / f"{writer}_store")
+    if writer == "jax":
+        again = pipeline.analyze_library(
+            scans["files"], cfg=AnalysisConfig.for_gpu(), batch_size=2,
+            device="cpu", store=FeatureStore(path), handle_sigint=False,
+        )
+    else:
+        again = jpipeline.analyze_library(
+            scans["files"], cfg=JConfig.for_tpu(), batch_size=2,
+            long_song_samples=None, store=JStore(path), handle_sigint=False,
+        )
+    assert again.stats.get("device_dispatch", {"count": 0})["count"] == 0
+    np.testing.assert_array_equal(again.features, scans["ref" if writer == "jax" else "port"].features)
+    assert dataclasses.asdict(AnalysisConfig.for_gpu()) == dataclasses.asdict(JConfig.for_tpu())
+
+
+def test_cancel_event_drains_and_resumes(tmp_path):
+    """A cancel Event stops the scan after in-flight work drains; the next
+    run resumes losslessly from the store (tests/test_pipeline.py's
+    cancellation test, on the port)."""
+    rng = np.random.RandomState(3)
+    files = []
+    for i in range(8):
+        frames = rng.randint(-15000, 15000, size=(30_000 + 512 * i, 2))
+        files.append(str(tmp_path / f"song{i}.flac"))
+        write_flac(files[-1], frames.astype(np.int16), 22050)
+    store = FeatureStore(str(tmp_path / "store"))
+    cancel = threading.Event()
+
+    def progress(done, total, msg):
+        if done >= 2:  # cancel once the first batch lands
+            cancel.set()
+
+    cfg = AnalysisConfig.for_gpu()
+    r1 = pipeline.analyze_library(
+        files, cfg=cfg, batch_size=2, store=store, progress=progress,
+        cancel=cancel, device="cpu",
+    )
+    assert r1.stats["cancelled"]
+    n_done = int(r1.ok.sum())
+    assert 0 < n_done <= len(files)
+    assert np.isfinite(r1.features[r1.ok]).all()
+
+    store2 = FeatureStore(str(tmp_path / "store"))
+    assert len(store2) == n_done  # completed work persisted
+    r2 = pipeline.analyze_library(files, cfg=cfg, batch_size=2, store=store2, device="cpu")
+    assert not r2.stats["cancelled"]
+    assert r2.ok.all()
+    np.testing.assert_array_equal(r2.features[r1.ok], r1.features[r1.ok])
+
+
+def test_a_long_song_is_logged_and_stays_on_the_bucket_path(scans):
+    """Streaming is ROADMAP M5: a song above long_song_samples gets a log
+    event naming M5 and the same row as without the threshold."""
+    events = []
+    with mock.patch.object(pipeline, "log_event", lambda lg, msg, **kw: events.append((msg, kw))):
+        r = pipeline.analyze_library(
+            scans["files"], cfg=AnalysisConfig.for_gpu(), batch_size=2,
+            device="cpu", handle_sigint=False, long_song_samples=90_000,
+        )
+    longs = [kw for msg, kw in events if "M5" in msg]
+    assert [kw["file"] for kw in longs] == [scans["files"][5]]
+    np.testing.assert_array_equal(r.features, scans["port"].features)
+
+
+@pytest.mark.parametrize(
+    "kwargs, item",
+    [({"mesh": object()}, "M10"), ({"extended": True}, "M8")],
+    ids=["mesh", "extended"],
+)
+def test_unported_options_raise(kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        pipeline.analyze_library([], device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("entry", ["analyze_library", "_scan"])
+@pytest.mark.parametrize(
+    "change", [{"dtype": "float64"}, {"fused_kernel": False}], ids=["float64", "xla_path"]
+)
+def test_an_unported_hybrid_config_is_refused_before_any_decode(scans, entry, change):
+    """A tempo_finish="host" config the port does not run (the float64
+    parity config, the XLA path) raises naming M7 before a file is decoded
+    or a row stored under its config key."""
+    cfg = dataclasses.replace(AnalysisConfig.for_gpu_hybrid(), **change)
+    store = FeatureStore(str(scans["dir"] / f"refused_{entry}_{'_'.join(change)}"))
+    with mock.patch.object(pipeline, "iter_decode", side_effect=AssertionError("decoded")):
+        with pytest.raises(NotImplementedError, match="M7"):
+            if entry == "analyze_library":
+                pipeline.analyze_library(
+                    scans["files"], cfg=cfg, batch_size=2, device="cpu",
+                    store=store, handle_sigint=False,
+                )
+            else:
+                result = pipeline.ScanResult(
+                    list(scans["files"]), np.full((len(scans["files"]), 4), np.nan, np.float32),
+                    np.zeros(len(scans["files"]), bool), {}, {},
+                )
+                pipeline._scan(
+                    result, iter([]), cfg=cfg, batch_size=2,
+                    device=torch.device("cpu"), timer=pipeline.StageTimer(),
+                )
+    assert len(store) == 0
+
+
+def test_scan_defaults_to_the_gpu(scans):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.analyze_library(scans["files"])
