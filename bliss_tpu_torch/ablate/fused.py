@@ -109,13 +109,12 @@ def stats_pieces(
         raise ValueError(f"no kernel for device {x.device}")
     from bliss_tpu_torch.kernels import _build
 
-    global LAUNCHES
     index, *_, dtype = VARIANTS[variant]
     tabs = dict(device_tables(1, TAPS, "firwin", x.device))
     tabs["fir"], tabs["warm"] = tabs["fir"].to(dtype), tabs["warm"].to(dtype)
     args, outs = fs.stats_launch_args(x, alpha, beta, None, tabs, 1, TAPS)
     _build.launch("ablate", "bliss_stats_ablate", x.device, index, *args)
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return outs
 
 

@@ -72,7 +72,6 @@ def proto_call(
         raise ValueError("x must be contiguous and 16-byte aligned")
     from bliss_tpu_torch.kernels import _build
 
-    global LAUNCHES
     B, L = x.shape
     tabs = device_tables(1, TAPS, "firwin", x.device)
     cheb, hw = _cheb(cheb_degree, halfwidth, torch.device(x.device))
@@ -83,7 +82,7 @@ def proto_call(
         alpha.data_ptr(), beta.data_ptr(), cheb.data_ptr(), cheb.numel(), hw,
         tabs["fir"].data_ptr(), tabs["warm"].data_ptr(), TAPS, out.data_ptr(),
     )
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return _layout(out, chunk)
 
 

@@ -68,14 +68,13 @@ def probe(x: torch.Tensor, nblk: int, mode: str) -> torch.Tensor:
         raise ValueError("x must be contiguous and 16-byte aligned")
     from bliss_tpu_torch.kernels import _build
 
-    global LAUNCHES
     B, R, _ = x.shape
     out = torch.empty(B, R // nblk, 8, nblk, dtype=torch.float32, device=x.device)
     _build.launch(
         "ablate", "bliss_probe", x.device, MODES[mode], DTYPES[x.dtype],
         None if mode == "zero" else x.data_ptr(), B, R, nblk, out.data_ptr(),
     )
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return out
 
 

@@ -33,17 +33,15 @@ from bliss_tpu_torch.features.analyze import (
     analyze_batch_hybrid,
     force_and_class,
 )
+from bliss_tpu_torch.features import streaming
 from bliss_tpu_torch.features.types import PCMBatch, resolve_device
 from bliss_tpu_torch.io import DecodedAudio, DecodeError, decode as _decode
 from bliss_tpu_torch.sim import distance as _sim
-from bliss_tpu_torch.utils import get_logger, log_event
 
-# Songs longer than this (interleaved samples, ~3 min) will analyze via the
-# chunked streaming path (ROADMAP M5) — re-exported from the pipeline (the
-# single definition) so Song.analyze and analyze_library can never disagree.
+# Songs longer than this (interleaved samples, ~3 min) analyze via the
+# chunked streaming path — re-exported from the pipeline (the single
+# definition) so Song.analyze and analyze_library can never disagree.
 from bliss_tpu_torch.pipeline import LONG_SONG_SAMPLES  # noqa: E402
-
-logger = get_logger("bliss_tpu_torch.api")
 
 
 def default_config() -> AnalysisConfig:
@@ -201,9 +199,8 @@ class Song(Mapping):
         """Decode + full analysis on ``device`` (default: the Song's);
         returns the LOUD/CALM/UNKNOWN class (reference: src/analyze.c:33-80).
 
-        Until the streaming path is ported (ROADMAP M5), a song longer than
-        ``LONG_SONG_SAMPLES`` is logged and analyzed whole, as the pipeline
-        does."""
+        A song longer than ``LONG_SONG_SAMPLES`` is streamed
+        (``features/streaming.py``), as the pipeline does."""
         if filename is not None:
             self.filename = filename
             self.sample_array = None
@@ -211,15 +208,13 @@ class Song(Mapping):
         cfg = cfg or default_config()
         if self.sample_array is None:
             self.decode()
-        n = int(np.asarray(self.sample_array).shape[0])
-        if n > LONG_SONG_SAMPLES:
-            log_event(
-                logger,
-                "long song analyzed whole (streaming is ROADMAP M5)",
-                file=self.filename,
-                n_samples=n,
+        pcm = np.asarray(self.sample_array)
+        if pcm.shape[0] > LONG_SONG_SAMPLES and streaming.streaming_supports(cfg):
+            feats = streaming.analyze_song_streaming(
+                pcm, self.duration, cfg, device=device
             )
-        feats = analyze_features(self._batch(cfg, device), cfg)[0]
+        else:
+            feats = analyze_features(self._batch(cfg, device), cfg)[0]
         self.force_vector = ForceVector(*map(float, feats))
         force, cls = force_and_class(torch.from_numpy(feats[None, :]))
         self.force = float(force[0])

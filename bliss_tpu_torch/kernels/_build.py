@@ -9,7 +9,8 @@ a module is imported, and a missing ``nvcc`` or a failed build raises.
 ``library(name)`` binds the entry points of ``csrc/<name>.cu``:
 ``fused_all`` (K1, K2, K3 and the prepass) and ``ablate`` (the measurement
 kernels A1, A2 and A3 of ``bliss_tpu_torch.ablate``). ``launch`` calls one entry point
-on the tensor's current stream and raises if the launch failed.
+on the tensor's current stream and raises if the launch failed;
+``count_launch`` counts a wrapper's launches.
 ``build(names)`` compiles several sources at once, one ``nvcc`` each.
 """
 
@@ -145,6 +146,18 @@ def library(name: str) -> ctypes.CDLL:
         lib.bliss_cuda_error_string.restype = ctypes.c_char_p
         _bound[name] = lib
     return lib
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(counters: dict, name: str) -> None:
+    """Adds one to the launch counter ``name`` of ``counters`` (a wrapper
+    module's ``globals()``) under a lock: kernels launch from more than one
+    thread (the pipeline streams a long song on its pool thread while the
+    main thread launches batches), and a bare ``+=`` can lose a count."""
+    with _count_lock:
+        counters[name] += 1
 
 
 def launch(name: str, fn: str, device, *args) -> None:

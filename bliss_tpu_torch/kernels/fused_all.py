@@ -57,7 +57,6 @@ def fused_all_call(
         raise ValueError(f"no kernel for device {samples.device}")
     from bliss_tpu_torch.kernels import _build
 
-    global LAUNCHES
     tabs = device_tables(nb_bands, band_taps, filterbank, samples.device)
     args, (wsum, rownz, stats) = fs.stats_launch_args(
         samples, alpha, beta, halo0, tabs, nb_bands, band_taps
@@ -68,7 +67,7 @@ def fused_all_call(
         "fused_all", "bliss_fused_all", samples.device, *args, n_frames.data_ptr(),
         tabs["twiddle"].data_ptr(), tabs["hann"].data_ptr(), part.data_ptr(), ntiles,
     )
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return wsum, rownz, fs.assemble_energies(stats), stft.fold_power(part.sum(dim=1))
 
 

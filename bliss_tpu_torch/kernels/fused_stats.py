@@ -154,13 +154,12 @@ def fused_stats_call(
         raise ValueError(f"no kernel for device {samples.device}")
     from bliss_tpu_torch.kernels import _build
 
-    global LAUNCHES
     tabs = device_tables(nb_bands, band_taps, filterbank, samples.device)
     args, (wsum, rownz, stats) = stats_launch_args(
         samples, alpha, beta, halo0, tabs, nb_bands, band_taps
     )
     _build.launch("fused_all", "bliss_fused_stats", samples.device, *args)
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return wsum, rownz, assemble_energies(stats)
 
 
@@ -471,13 +470,12 @@ def prepass_sums(samples: torch.Tensor, n_samples: torch.Tensor):
         raise ValueError("samples must be contiguous, 16-byte aligned, L a multiple of 8")
     from bliss_tpu_torch.kernels import _build
 
-    global PREPASS_LAUNCHES
     n32 = n_samples.to(torch.int32).contiguous()
     chunks = prepass_chunks(L)
     part = torch.empty(B, chunks, 2, dtype=torch.int64, device=samples.device)
     _build.launch("fused_all", "bliss_prepass", samples.device, samples.data_ptr(), B, L,
                   n32.data_ptr(), part.data_ptr(), chunks)
-    PREPASS_LAUNCHES += 1
+    _build.count_launch(globals(), "PREPASS_LAUNCHES")
     sums = part.sum(dim=1)
     return sums[:, 0], sums[:, 1]
 
@@ -501,27 +499,37 @@ def prepass_sums_reference(samples: torch.Tensor, n_samples: torch.Tensor):
     return torch.cat(s1), torch.cat(s2)
 
 
-def mean_variance(samples: torch.Tensor, n_samples: torch.Tensor):
+def moments(sum_s: torch.Tensor, sum_s2: torch.Tensor, n_samples: torch.Tensor):
     """(mean int32 [B], var int64 [B]) as the C reference computes them
-    (src/helpers.c bl_mean, bl_variance): the mean a wrapping int32 sum
-    divided like C, the variance sum (s - mean)^2 divided like C, exact.
-    Both come from the exact sums of s and s^2: the wrapped sum is their low
-    32 bits, and sum (s - mean)^2 = sum s^2 - 2 mean sum s + n mean^2, each
-    term below 2^56."""
-    sum_s, sum_s2 = prepass_sums(samples, n_samples)
+    (src/helpers.c bl_mean, bl_variance) from the exact int64 sums of s and
+    s^2 over n_samples samples: the mean a wrapping int32 sum divided like
+    C, the variance sum (s - mean)^2 divided like C, exact. The wrapped sum
+    is the low 32 bits of sum s, and sum (s - mean)^2 = sum s^2 - 2 mean
+    sum s + n mean^2, each term below 2^62 for any n below 2^31."""
     mean = c_div(wrap_int32(sum_s), n_samples)
     m = mean.to(torch.int64)
     n = n_samples.to(torch.int64)
     return mean, c_div(sum_s2 - 2 * m * sum_s + n * m * m, n)
 
 
+def mean_variance(samples: torch.Tensor, n_samples: torch.Tensor):
+    """``moments`` of each song's valid samples, from ``prepass_sums``."""
+    return moments(*prepass_sums(samples, n_samples), n_samples)
+
+
 def normalization(samples: torch.Tensor, n_samples: torch.Tensor):
-    """The integer mean/variance prepass: (alpha, beta, mean) with alpha,
-    beta float32 [B] and xn = alpha*s + beta the zero-mean, divided-by-
-    variance signal (reference: src/tempo_atk_sort.c:101-114), from
-    ``mean_variance``'s exact integers. A silent song (var = 0) gives
-    infinite alpha and NaN or infinite beta."""
-    mean, var = mean_variance(samples, n_samples)
+    """The integer mean/variance prepass: ``normalization_from_sums`` of
+    ``prepass_sums``."""
+    return normalization_from_sums(*prepass_sums(samples, n_samples), n_samples)
+
+
+def normalization_from_sums(sum_s: torch.Tensor, sum_s2: torch.Tensor, n_samples: torch.Tensor):
+    """(alpha, beta, mean) from the exact sums of s and s^2: alpha, beta
+    float32 [B] with xn = alpha*s + beta the zero-mean, divided-by-variance
+    signal (reference: src/tempo_atk_sort.c:101-114), from ``moments``'
+    exact integers. A silent song (var = 0) gives infinite alpha and NaN or
+    infinite beta."""
+    mean, var = moments(sum_s, sum_s2, n_samples)
     var = var.to(torch.float32)
     inv = 1.0 / (1 << 15)
     alpha = inv / (var * inv * inv)

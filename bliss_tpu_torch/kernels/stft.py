@@ -131,7 +131,6 @@ def stft_power(
         raise ValueError(f"no kernel for device {samples.device}")
     from bliss_tpu_torch.kernels import _build
 
-    global LAUNCHES
     tabs = device_tables(1, 17, "firwin", samples.device)
     part, ntiles = power_scratch(samples)
     B, L = samples.shape
@@ -142,7 +141,7 @@ def stft_power(
         n_frames.data_ptr(), None if offset is None else offset.data_ptr(),
         tabs["twiddle"].data_ptr(), tabs["hann"].data_ptr(), part.data_ptr(), ntiles,
     )
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return fold_power(part.sum(dim=1))
 
 

@@ -16,10 +16,12 @@ analog of the reference GUI's skip-bad-files behavior). With a FeatureStore,
 already-analyzed files (by content fingerprint) are skipped — resumable
 library scans.
 
+A song longer than ``long_song_samples`` skips the buckets: the pool thread
+streams it alone through ``features/streaming.analyze_song_streaming``, whose
+cost grows with the song rather than with a bucket of 64 such songs.
+
 Not ported yet: a ``mesh`` (ROADMAP M10) and ``extended=True`` (M8) raise
-NotImplementedError, and until streaming lands (M5) every song, however
-long, goes through the bucket path, as ``bliss_tpu``'s pipeline does with
-``long_song_samples=None``.
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from bliss_tpu_torch.config import AnalysisConfig, check_supported
 from bliss_tpu_torch.features.analyze import analyze_batch, launch_hybrid
+from bliss_tpu_torch.features.streaming import analyze_song_streaming, streaming_supports
 from bliss_tpu_torch.features.types import PCMBatch, resolve_device
 from bliss_tpu_torch.io import iter_decode
 from bliss_tpu_torch.store.feature_store import FeatureStore
@@ -41,10 +44,9 @@ from bliss_tpu_torch.utils import StageTimer, get_logger, log_event
 
 logger = get_logger("bliss_tpu_torch.pipeline")
 
-# Songs longer than this (interleaved samples, ~3 min) will route through
-# the chunked streaming path once it is ported (ROADMAP M5); until then they
-# are logged and bucketed like any other song. Single source of truth —
-# api.py re-exports it for the Song API's identical routing decision.
+# Songs longer than this (interleaved samples, ~3 min) route through the
+# chunked streaming path. Single source of truth — api.py re-exports it for
+# the Song API's identical routing decision.
 LONG_SONG_SAMPLES = 1 << 23
 
 
@@ -121,9 +123,10 @@ def analyze_library(
     caller asks for the CPU; raises RuntimeError when no GPU is present);
     returns features in input order.
 
-    Songs longer than ``long_song_samples`` interleaved samples are logged
-    as waiting for the streaming path (ROADMAP M5) and analyzed in their
-    bucket like every other song; ``None`` turns the log off.
+    Songs longer than ``long_song_samples`` interleaved samples are
+    streamed one by one (``features/streaming.py``) on the finalize thread
+    instead of padded into a bucket; their time shows as the ``streaming``
+    stage. ``None`` sends every song through the buckets.
 
     progress: optional callback (done, total, message).
 
@@ -279,7 +282,8 @@ def _scan(
 ) -> bool:
     """``analyze_library``'s loop after decode: takes ``(index, DecodedAudio
     | None)`` pairs in scan order (None: the file failed to decode), buckets
-    them, dispatches full buckets and the rest at the end, and writes each
+    them, dispatches full buckets and the rest at the end, streams each song
+    longer than ``long_song_samples`` on the pool thread, and writes each
     song's row, ``ok`` flag or error into ``result`` (and ``store``, for the
     indices in ``fps``). Returns whether the scan was cancelled."""
     check_supported(cfg)
@@ -299,7 +303,7 @@ def _scan(
     from concurrent.futures import ThreadPoolExecutor
 
     buckets: dict[int, list] = {}
-    in_flight: list = []  # (entries, L, Future[features])
+    in_flight: list = []  # (entries, L or "stream", Future[features])
     max_in_flight = 2
     finalize_pool = ThreadPoolExecutor(max_workers=1)
 
@@ -408,16 +412,23 @@ def _scan(
                 if (
                     long_song_samples is not None
                     and decoded.n_samples > long_song_samples
+                    and streaming_supports(cfg)
                 ):
-                    # the streaming path is ROADMAP M5; until it is ported
-                    # a long song takes the bucket path like any other
-                    log_event(
-                        logger,
-                        "long song on the bucket path (streaming is ROADMAP M5)",
-                        file=files[j],
-                        n_samples=decoded.n_samples,
-                        long_song_samples=long_song_samples,
+                    # streamed alone on the finalize thread, so the decode
+                    # stream and the batches keep flowing; its row rides
+                    # the in_flight/finalize_oldest path like a batch's
+                    def _stream_one(d=decoded):
+                        with timer.stage("streaming"):
+                            return analyze_song_streaming(
+                                d.samples, d.duration, cfg, device=device
+                            )[None, :]
+
+                    in_flight.append(
+                        ([(j, decoded)], "stream", finalize_pool.submit(_stream_one))
                     )
+                    while len(in_flight) > max_in_flight:
+                        finalize_oldest()
+                    continue
                 L = _bucket_length(decoded.n_samples, cfg.pad_multiple)
                 buckets.setdefault(L, []).append((j, decoded))
                 if len(buckets[L]) == batch_size:

@@ -15,9 +15,10 @@ Phases, one line each, stopping at the first failure:
    same card tensors, (a) on a B=5, L=2^18 batch of edge cases and (b) on
    the main-path batch B=64, L=2^23, with the warm median of 5 timings of
    each: the prepass ``prepass_sums`` (int64 sums identical; the edge batch
-   has a silent song and one whose int32 sum wraps); K1 ``fused_all_call``;
-   K2 ``fused_stats_call`` (edge batch with and without ``halo0``, and at
-   2 and 129 taps); K3 ``stft_power`` (edge batch with
+   has a silent song and one whose int32 sum wraps); K1 ``fused_all_call``
+   (edge batch with and without ``halo0``, the history a streamed row
+   takes); K2 ``fused_stats_call`` (edge batch with and without ``halo0``,
+   and at 2 and 129 taps); K3 ``stft_power`` (edge batch with
    ``frame_offset`` 0, mid-song and past every song's frames), with K3's
    yardsticks ``torch.matmul`` (a dense DFT) and ``torch.fft.rfft`` of the
    same frames;
@@ -56,7 +57,21 @@ Phases, one line each, stopping at the first failure:
    a FLAC library of 8 songs of ~30 s (one at 44.1 kHz) and a broken file,
    scanned by ``analyze_library`` into a ``FeatureStore`` and resumed from
    it, and ``Song`` and ``distance_file`` on two of the files; where it
-   does not, one line says the file phase is left out.
+   does not, one line says the file phase is left out;
+9. long songs streamed (``features/streaming.py``): eight ``synth_song``s
+   of 2^23 + 1 .. 31752000 interleaved samples (3.2-12 min) and a 60-minute
+   mix of 158760000 samples made of them, (a) through ``pipeline._scan``
+   with its default ``long_song_samples`` among the main batch's 64 songs,
+   under ``for_gpu()`` and ``for_gpu_hybrid()``: every row ok, the
+   ``streaming`` stage once a long song, the short songs' rows those of
+   phases 4 and 5, and exactly the launches the path makes (the prepass
+   and K1, or the prepass, K2 and K3); (b) each streamed row against the
+   song whole at B=1 in its bucket (beat counts identical, the rest within
+   1e-3); (c) ``chunk_samples`` 2^20 and 2^22 count the same beats; (d) the
+   mix streamed with the plain versions of the kernels counts the same
+   beats; with the seconds a song of each route, the scan's songs/s and
+   minutes of audio a second, its stages, the peak device memory while the
+   mix streams, and a ``torch.profiler`` trace of one streamed song.
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -74,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -310,18 +326,20 @@ def check_kernels(batch, label, timed: bool, edge: bool):
     def k1_errors(k, p):
         return {**stats_errors("fused_all", k, p), **power_errors("fused_all", k[3], p[3])}
 
-    out["fused_all"] = kernel_vs_plain(
-        f"fused_all {label}",
-        lambda: fa.fused_all_call(x, alpha, beta, n_frames),
-        lambda: fa.fused_all_reference(x, alpha, beta, n_frames),
-        k1_errors, timed,
-    )
     halos = [None]
     if edge:
         rng = np.random.default_rng(SEED + 1)
         halos.append(torch.from_numpy(
             rng.integers(-20000, 20000, size=(x.shape[0], 16), dtype=np.int16)
         ).cuda())
+    for halo0 in halos:  # K1 with halo0: what a streamed song's rows take
+        res = kernel_vs_plain(
+            f"fused_all {label}" + (" halo0" if halo0 is not None else ""),
+            lambda: fa.fused_all_call(x, alpha, beta, n_frames, halo0),
+            lambda: fa.fused_all_reference(x, alpha, beta, n_frames, halo0),
+            k1_errors, timed and halo0 is None,
+        )
+        out.setdefault("fused_all", res)
     for halo0 in halos:
         res = kernel_vs_plain(
             f"fused_stats {label}" + (" halo0" if halo0 is not None else ""),
@@ -515,7 +533,7 @@ def reset_counts() -> None:
     fa.LAUNCHES = fs.LAUNCHES = fs.PREPASS_LAUNCHES = stft.LAUNCHES = 0
 
 
-STAGES = ("pad", "device_dispatch", "device_finalize", "finalize_wait", "scan")
+STAGES = ("pad", "device_dispatch", "device_finalize", "finalize_wait", "streaming", "scan")
 
 
 def stage_line(stats: dict) -> str:
@@ -576,6 +594,202 @@ def scan_phase(songs, durs, cfg, name, device, batch_size, label, runs=3, trace=
             f"{stage_line(stats)}; {n / stats['scan']['seconds']:.1f} songs/s over the scan {label}")
     if trace:
         log(f"pipeline (a) {name} scan trace: {device_trace(one_scan)} {label}")
+    return launches
+
+
+LONG_MIN, LONG_MAX = (1 << 23) + 1, 31_752_000  # 3.2 to 12 min of stereo at 22.05 kHz
+MIX_LEN = 158_760_000  # a 60-minute mix
+
+
+def long_songs(rng: np.random.Generator):
+    """Phase 9's songs: eight ``synth_song``s whose lengths run evenly from
+    LONG_MIN to LONG_MAX interleaved samples, and a 60-minute mix of MIX_LEN
+    samples, the eight rotated by a third each and concatenated."""
+    lengths = np.linspace(LONG_MIN, LONG_MAX, 8).round().astype(np.int64)
+    songs = [synth_song(rng, int(n)) for n in lengths]
+    songs.append(np.concatenate([np.roll(s, s.shape[0] // 3) for s in songs])[:MIX_LEN])
+    return songs, [int(s.shape[0]) // (2 * SR) for s in songs]
+
+
+def stream_rows(songs, durs, cfg, chunk, device):
+    """``analyze_song_streaming`` of each song on ``device``: (rows [N, 4],
+    seconds of each song, its copy to the device included)."""
+    from bliss_tpu_torch.features.streaming import analyze_song_streaming
+
+    rows, secs = [], []
+    for s, d in zip(songs, durs):
+        t0 = time.perf_counter()
+        rows.append(analyze_song_streaming(s, d, cfg, chunk, device=device))
+        secs.append(time.perf_counter() - t0)
+    return np.stack(rows), secs
+
+
+def whole_rows(songs, durs, cfg, device):
+    """Each song whole and alone, as the bucket path would take it at B=1:
+    ``api.analyze_features`` of a [1, L] batch on ``device``, L its pipeline
+    bucket. Returns (rows [N, 4], seconds of each song, the copy included)."""
+    from bliss_tpu_torch import api, pipeline
+    from bliss_tpu_torch.features.types import PCMBatch
+
+    rows, secs = [], []
+    for s, d in zip(songs, durs):
+        t0 = time.perf_counter()
+        x = torch.zeros(1, pipeline._bucket_length(s.shape[0], cfg.pad_multiple),
+                        dtype=torch.int16, device=device)
+        x[0, : s.shape[0]].copy_(torch.from_numpy(s))
+        n_t, d_t = (torch.full((1,), v, dtype=torch.int32, device=device) for v in (s.shape[0], d))
+        rows.append(api.analyze_features(PCMBatch(x, n_t, d_t), cfg)[0])
+        secs.append(time.perf_counter() - t0)
+        del x
+    return np.stack(rows), secs
+
+
+def secs_line(secs) -> str:
+    return "[" + ", ".join(f"{s:.3f}" for s in secs) + "] s"
+
+
+def stream_phase(short, short_durs, short_rows, device, label) -> dict:
+    """Phase 9: long songs streamed. (a) ``pipeline._scan`` with the default
+    ``long_song_samples`` under ``for_gpu()`` and ``for_gpu_hybrid()`` on
+    ``long_songs`` interleaved with the ``short`` songs (which take the
+    bucket path on the main thread while the pool thread streams): every row
+    ok, the ``streaming`` stage once a long song, the short songs' rows
+    ``short_rows[name]``, and exactly the launches the path makes (the
+    prepass and K1, or the prepass, K2 and K3: one of each a batch, one
+    prepass a long song and one K1 or K2 and K3 a group of its rows);
+    (b) each streamed row against the song whole at B=1 in its bucket;
+    (c) streaming at ``chunk_samples`` 2^20 and 2^22 counts the same beats;
+    (d) the 60-minute mix streamed with the plain versions of the kernels
+    counts the same beats. Prints the seconds a song of each route, the
+    scan's songs/s and minutes of audio a second, its stages, the peak
+    device memory while the mix streams, and a trace of one streamed song.
+    Runs on ``device``; returns each config's scan launches."""
+    from bliss_tpu_torch import AnalysisConfig, pipeline
+    from bliss_tpu_torch.features import streaming
+    from bliss_tpu_torch.io import DecodedAudio
+    from bliss_tpu_torch.kernels import fused_all as fa
+    from bliss_tpu_torch.kernels import fused_stats as fs
+    from bliss_tpu_torch.kernels import stft
+    from bliss_tpu_torch.utils import StageTimer
+
+    t0 = time.perf_counter()
+    songs, durs = long_songs(np.random.default_rng(SEED + 4))
+    n_long = len(songs)
+    minutes = sum(s.shape[0] for s in songs) / (2 * SR * 60)
+    log(f"streaming (phase 9) songs: {[int(s.shape[0]) for s in songs]} interleaved samples, "
+        f"{minutes:.1f} min of audio, generated in {time.perf_counter() - t0:.1f} s")
+    # a long song, then 8 short ones, and so on: the pool thread streams
+    # while the main thread fills and dispatches buckets
+    per = -(-len(short) // n_long)
+    order = []
+    for i in range(n_long):
+        order += [("long", i)] + [("short", k) for k in range(i * per, min(len(short), (i + 1) * per))]
+    pcm = {"long": songs, "short": short}
+    dur = {"long": durs, "short": short_durs}
+    decoded = [DecodedAudio(pcm[kind][i], 2, SR, 0, 2, 0, dur[kind][i], f"{kind}-{i}",
+                            "", "", "", "", "") for kind, i in order]
+    buckets = {pipeline._bucket_length(s.shape[0], 1024) for s in short}
+    CH = streaming.DEFAULT_CHUNK
+    group = max(1, streaming.GROUP_SAMPLES // (CH + stft.FRAME))  # rows a launch
+    groups = sum(-(-(-(-s.shape[0] // CH)) // group) for s in songs)  # ceil(ceil(n / CH) / group)
+    batches = sum(-(-sum(pipeline._bucket_length(s.shape[0], 1024) == L for s in short) // MAIN_B)
+                  for L in buckets)
+    n = len(decoded)
+    # the stream each thread's launches go to (kernels/_build.launch takes
+    # the calling thread's current stream)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pool_stream = pool.submit(lambda: torch.cuda.current_stream(device).cuda_stream).result()
+    log(f"streaming: the pool thread launches on stream {pool_stream:#x}, the main thread on "
+        f"{torch.cuda.current_stream(device).cuda_stream:#x}")
+    launches, rows = {}, {}
+    cfgs = {"main": AnalysisConfig.for_gpu(), "hybrid": AnalysisConfig.for_gpu_hybrid()}
+    for name, cfg in cfgs.items():
+        result = pipeline.ScanResult([d.filename for d in decoded],
+                                     np.full((n, 4), np.nan, np.float32), np.zeros(n, bool), {}, {})
+        timer = StageTimer()
+        reset_counts()
+        cancelled = pipeline._scan(result, enumerate(decoded), cfg=cfg, batch_size=MAIN_B,
+                                   device=torch.device(device), timer=timer)
+        launches[name] = launch_counts()
+        stats = timer.report()
+        k1 = {"fused_all": batches + groups} if cfg.single_pass else {
+            "fused_stats": batches + groups, "stft_power": batches + groups}
+        want = {"prepass": batches + n_long, "fused_all": 0, "fused_stats": 0, "stft_power": 0, **k1}
+        if launches[name] != want:
+            raise AssertionError(f"the {name} streaming scan launched {launches[name]}; want {want}")
+        if cancelled or result.errors or not result.ok.all() or \
+                stats.get("streaming", {}).get("count") != n_long:
+            raise AssertionError(f"the {name} streaming scan: cancelled {cancelled}, errors "
+                                 f"{result.errors}, ok {int(result.ok.sum())} of {n}, stages {stats}")
+        is_long = np.array([kind == "long" for kind, _ in order])
+        rows[name] = result.features[is_long]
+        short_err = same_scores(f"{name} streaming scan, short songs", result.features[~is_long],
+                                short_rows[name], "the main batch's rows")
+        audio_min = minutes + sum(s.shape[0] for s in short) / (2 * SR * 60)
+        scan_s = stats["scan"]["seconds"]
+        log(f"streaming (a) {name} scan of {n_long} long and {len(short)} short songs at B={MAIN_B}: "
+            f"launches {launches[name]} (exactly {batches} batches, {n_long} long songs, {groups} "
+            f"groups of rows); every row ok, short rows as the main batch's (max |diff| "
+            f"{short_err.max():.2e}); {stage_line(stats)}; {n / scan_s:.1f} songs/s, "
+            f"{audio_min / scan_s:.1f} min of audio a second over the scan {label}")
+
+    main = cfgs["main"]
+    whole, whole_s = whole_rows(songs, durs, main, device)
+    for name in cfgs:
+        err = same_scores(f"streamed {name} rows", rows[name], whole,
+                          "each song whole at B=1 in its bucket")
+        log(f"streaming (b) {name}: beat counts identical to each song whole at B=1 in its "
+            f"bucket ({', '.join(str(int(b)) for b in beat_counts(rows[name], durs))} beats), "
+            f"max |diff| amplitude {err[0]:.2e} frequency {err[1]:.2e} attack {err[2]:.2e}")
+    timed = {name: stream_rows(songs, durs, cfg, CH, device) for name, cfg in cfgs.items()}
+    r20, s20 = stream_rows(songs, durs, main, 1 << 20, device)
+    for what, got in (("2^22", timed["main"][0]), ("2^20", r20)):
+        same_scores(f"streaming at chunk_samples {what}", got, rows["main"], "the scan's rows")
+    log(f"streaming (c) chunk_samples 2^20 and 2^22: beat counts identical to the scan's rows; "
+        f"seconds a song: streamed main {secs_line(timed['main'][1])}, hybrid "
+        f"{secs_line(timed['hybrid'][1])}, main at 2^20 {secs_line(s20)}; whole at B=1 in its "
+        f"bucket (host pad and copy included) {secs_line(whole_s)} {label}")
+
+    mix, mix_dur = songs[-1], durs[-1]
+    plain_prepass = mock.patch.object(fs, "prepass_sums", fs.prepass_sums_reference)
+    with plain_prepass, mock.patch.object(fa, "fused_all_call", fa.fused_all_reference):
+        plain_main = streaming.analyze_song_streaming(mix, mix_dur, main, device=device)
+    with plain_prepass, mock.patch.object(fs, "fused_stats_call", fs.fused_stats_reference), \
+            mock.patch.object(stft, "stft_power", stft.stft_power_reference):
+        plain_hyb = streaming.analyze_song_streaming(mix, mix_dur, cfgs["hybrid"], device=device)
+    err_m = same_scores("the mix with plain kernels", plain_main[None], rows["main"][-1:], "the scan")
+    err_h = same_scores("the hybrid mix with plain kernels", plain_hyb[None], rows["hybrid"][-1:],
+                        "the scan")
+    log(f"streaming (d) the 60-minute mix with the plain prepass and K1 (hybrid: prepass, K2, K3): "
+        f"beat counts identical to the scan's, max |diff| {err_m.max():.2e} (hybrid {err_h.max():.2e})")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    streaming.analyze_song_streaming(mix, mix_dur, main, device=device)
+    mix_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - before
+    reset_counts()
+    streaming.analyze_song_streaming(songs[-2], durs[-2], main, device=device)
+    one_launches = launch_counts()
+    log(f"streaming the 60-minute mix ({MIX_LEN} samples, {MIX_LEN * 2 / 2**20:.0f} MiB): peak "
+        f"device memory {peak / 2**30:.3f} GiB above the {before / 2**30:.2f} GiB already held; "
+        f"launches {mix_launches}; the {LONG_MAX}-sample song: launches {one_launches} {label}")
+    copies = []
+    for s in (songs[-2], mix):
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            torch.from_numpy(s).to(device)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        copies.append(f"{s.nbytes / 2**20:.1f} MiB {statistics.median(times) * 1e3:.1f} ms")
+    log(f"streaming host-to-device copy of a song (pageable, median of 3): the "
+        f"{LONG_MAX}-sample song {copies[0]}, the mix {copies[1]} {label}")
+    log(f"streaming trace of the {LONG_MAX}-sample song (main): "
+        f"{device_trace(lambda: streaming.analyze_song_streaming(songs[-2], durs[-2], main, device=device))} {label}")
+    log(f"streaming (phase 9) took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -893,6 +1107,9 @@ def main() -> int:
             "(libavformat, libavcodec, libavutil, libswresample) on this machine, so the "
             "native decoder cannot be built here; file decode is checked on the CPU only")
 
+    # 9. long songs streamed, with the main batch's songs among them
+    stream_launches = stream_phase(arrays, durations, {"main": out, "hybrid": outh}, "cuda", label)
+
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
@@ -947,6 +1164,7 @@ def main() -> int:
         e.update(route="cuda", launches=launches[e["name"]], library_ms=library[e["name"]])
         if e["name"] in scan_launches["main"]:
             e["scan_launches"] = {k: v[e["name"]] for k, v in scan_launches.items()}
+            e["stream_launches"] = {k: v[e["name"]] for k, v in stream_launches.items()}
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

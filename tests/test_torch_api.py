@@ -17,6 +17,7 @@ from bliss_tpu.io.flac_writer import write_flac
 import bliss_tpu_torch
 from bliss_tpu_torch import api
 from bliss_tpu_torch.config import AnalysisConfig
+from bliss_tpu_torch.features import streaming
 
 torch.set_num_threads(1)
 
@@ -128,15 +129,31 @@ def test_mapping_interface():
         s.decode()
 
 
-def test_a_long_song_is_logged_and_analyzed_whole(files, port_songs):
-    """Streaming is ROADMAP M5: above LONG_SONG_SAMPLES a song is logged
-    and analyzed whole, to the same vector."""
-    events = []
+def test_a_long_song_is_logged_and_analyzed_whole(files):
+    """Above ``LONG_SONG_SAMPLES`` a Song streams on its device, as
+    bliss_tpu's does: ``analyze`` calls ``analyze_song_streaming``, its
+    vector is that function's, and it counts the beats of bliss_tpu's
+    streamed Song within 5e-4 elsewhere (ROADMAP's float32 gate)."""
+    real = streaming.analyze_song_streaming
+    devices = []
+
+    def spy(*args, **kwargs):
+        devices.append(kwargs["device"])
+        return real(*args, **kwargs)
+
     with mock.patch.object(api, "LONG_SONG_SAMPLES", 50_000), \
-            mock.patch.object(api, "log_event", lambda lg, msg, **kw: events.append(msg)):
+            mock.patch.object(streaming, "analyze_song_streaming", spy):
         s = bliss_tpu_torch.Song(files[0], device="cpu")
-    assert len(events) == 1 and "M5" in events[0]
-    np.testing.assert_array_equal(s.force_vector.as_array(), port_songs[0].force_vector.as_array())
+    assert devices == [torch.device("cpu")]
+    row = real(s.sample_array, s.duration, AnalysisConfig.for_gpu(), device="cpu")
+    np.testing.assert_array_equal(s.force_vector.as_array(), row)
+    with mock.patch.object(bliss_tpu.api, "LONG_SONG_SAMPLES", 50_000):
+        ref = bliss_tpu.Song()
+        ref.analyze(files[0], cfg=JConfig.for_tpu())
+    assert s.force_vector.tempo == ref.force_vector.tempo  # equal beat counts
+    np.testing.assert_allclose(
+        s.force_vector.as_array()[1:], ref.force_vector.as_array()[1:], rtol=0, atol=5e-4
+    )
     assert api.LONG_SONG_SAMPLES == bliss_tpu.api.LONG_SONG_SAMPLES
 
 

@@ -184,6 +184,26 @@ def test_each_path_launches_only_its_own_kernels(cuda):
     assert _counters() == (before[0], before[1] + 2, before[2] + 2)
 
 
+@pytest.mark.parametrize("cfg", [AnalysisConfig.for_gpu(), AnalysisConfig.for_gpu_hybrid()],
+                         ids=["main", "hybrid"])
+def test_streaming_on_gpu_matches_cpu(cuda, cfg):
+    """A song streamed in five rows of 2^16 samples on the card: the CPU's
+    vector (beat counts identical, the rest within 1e-3), through one
+    prepass and one K1 (or K2 and K3) launch."""
+    from bliss_tpu_torch.features.streaming import analyze_song_streaming
+
+    song = _songs()[0][0]
+    song = np.concatenate([song, song[::-1]])  # 300 000 samples
+    before = _counters() + (fused_stats.PREPASS_LAUNCHES,)
+    gpu = analyze_song_streaming(song, 6, cfg, 1 << 16, device=cuda)
+    k1 = (1, 0, 0) if cfg.single_pass else (0, 1, 1)
+    assert _counters() + (fused_stats.PREPASS_LAUNCHES,) == tuple(
+        b + d for b, d in zip(before, k1 + (1,)))
+    cpu = analyze_song_streaming(song, 6, cfg, 1 << 16, device="cpu")
+    assert gpu[0] == cpu[0]
+    np.testing.assert_allclose(gpu[1:], cpu[1:], rtol=0, atol=1e-3)
+
+
 # ---- the measurement kernels A1-A3 (bliss_tpu_torch.ablate) -------------------
 
 

@@ -3,9 +3,10 @@ interpreter in which ``jax``, ``ml_dtypes`` and ``bliss_tpu`` cannot be
 imported runs ``analyze_pcm`` on the CPU, under the main path's config and
 the hybrid config (two kernels, then the NumPy/SciPy host finish), imports
 every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant,
-runs the prepass sums and the stats kernel's CPU twin, and writes two FLAC
+runs the prepass sums and the stats kernel's CPU twin, writes two FLAC
 files with the port's writer and scans them with the port's
-``analyze_library`` on the CPU (the native decoder built at first use)."""
+``analyze_library`` on the CPU (the native decoder built at first use), and
+streams a song with ``analyze_song_streaming``."""
 
 import os
 import subprocess
@@ -61,6 +62,11 @@ assert scan.ok.all() and not scan.errors and np.isfinite(scan.features).all(), s
 direct = bliss_tpu_torch.analyze_pcm([p.samples for p in pcm], [p.duration for p in pcm], device="cpu")
 assert np.array_equal(scan.features[:, 0], direct[:, 0]), (scan.features, direct)
 assert np.abs(scan.features - direct).max() <= 1e-5, (scan.features, direct)
+from bliss_tpu_torch.features.streaming import analyze_song_streaming
+long_song = np.tile(song, 5)  # 150 000 samples: three rows of 2^16
+streamed = analyze_song_streaming(long_song, 3, bliss_tpu_torch.AnalysisConfig.for_gpu(), 1 << 16, device="cpu")
+whole = bliss_tpu_torch.analyze_pcm([long_song], [3], device="cpu")[0]
+assert streamed[0] == whole[0] and np.abs(streamed - whole).max() <= 1e-3, (streamed, whole)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())

@@ -18,6 +18,8 @@ from bliss_tpu.io.flac_writer import write_flac
 from bliss_tpu.store import FeatureStore as JStore
 
 from bliss_tpu_torch import pipeline
+from bliss_tpu_torch.features import streaming
+from bliss_tpu_torch.io import decode
 from bliss_tpu_torch.config import AnalysisConfig
 from bliss_tpu_torch.features.analyze import analyze_batch
 from bliss_tpu_torch.features.types import PCMBatch
@@ -201,17 +203,30 @@ def test_cancel_event_drains_and_resumes(tmp_path):
 
 
 def test_a_long_song_is_logged_and_stays_on_the_bucket_path(scans):
-    """Streaming is ROADMAP M5: a song above long_song_samples gets a log
-    event naming M5 and the same row as without the threshold."""
-    events = []
-    with mock.patch.object(pipeline, "log_event", lambda lg, msg, **kw: events.append((msg, kw))):
-        r = pipeline.analyze_library(
-            scans["files"], cfg=AnalysisConfig.for_gpu(), batch_size=2,
-            device="cpu", handle_sigint=False, long_song_samples=90_000,
-        )
-    longs = [kw for msg, kw in events if "M5" in msg]
-    assert [kw["file"] for kw in longs] == [scans["files"][5]]
-    np.testing.assert_array_equal(r.features, scans["port"].features)
+    """A song above ``long_song_samples`` is streamed, as bliss_tpu's
+    pipeline streams it: the scan's ``streaming`` stage ran once, the song's
+    row is the port's ``analyze_song_streaming`` of it, it counts the beats
+    of bliss_tpu's scan under the same threshold and lies within 5e-4 of it
+    (ROADMAP's float32 gate), and every other row is the bucket scan's."""
+    files, cfg = scans["files"], AnalysisConfig.for_gpu()
+    r = pipeline.analyze_library(
+        files, cfg=cfg, batch_size=2, device="cpu", handle_sigint=False,
+        long_song_samples=90_000,
+    )
+    assert r.ok.sum() == len(SONGS) and r.stats["streaming"]["count"] == 1
+    d = decode(files[5])  # the one song above 90 000 samples
+    assert d.n_samples > 90_000
+    row = streaming.analyze_song_streaming(d.samples, d.duration, cfg, device="cpu")
+    np.testing.assert_array_equal(r.features[5], row)
+    others = np.arange(len(files)) != 5
+    np.testing.assert_array_equal(r.features[others], scans["port"].features[others])
+    ref = jpipeline.analyze_library(
+        files, cfg=JConfig.for_tpu(), batch_size=2, long_song_samples=90_000,
+        handle_sigint=False,
+    )
+    assert ref.stats["streaming"]["count"] == 1
+    assert r.features[5, 0] == ref.features[5, 0]  # equal beat counts
+    np.testing.assert_allclose(r.features[5, 1:], ref.features[5, 1:], rtol=0, atol=5e-4)
 
 
 @pytest.mark.parametrize(
