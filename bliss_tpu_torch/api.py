@@ -36,7 +36,8 @@ from bliss_tpu_torch.features.analyze import (
 from bliss_tpu_torch.features import streaming
 from bliss_tpu_torch.features.types import PCMBatch, resolve_device
 from bliss_tpu_torch.io import DecodedAudio, DecodeError, decode as _decode
-from bliss_tpu_torch.sim import distance as _sim
+from bliss_tpu_torch.sim.distance import cosine_similarity as _cosine_similarity
+from bliss_tpu_torch.sim.distance import distance as _distance
 
 # Songs longer than this (interleaved samples, ~3 min) analyze via the
 # chunked streaming path — re-exported from the pipeline (the single
@@ -290,13 +291,13 @@ def distance(song1, song2, *, device="cuda") -> float:
     """Euclidean distance; args may be filenames (analyzed on ``device``),
     Songs, ForceVectors, or 4-arrays (reference:
     python/bliss/distance.py:5-40)."""
-    return float(_sim.distance(_as_vector(song1, device), _as_vector(song2, device)))
+    return float(_distance(_as_vector(song1, device), _as_vector(song2, device)))
 
 
 def cosine_similarity(song1, song2, *, device="cuda") -> float:
     """Cosine similarity with the same flexible arguments."""
     return float(
-        _sim.cosine_similarity(_as_vector(song1, device), _as_vector(song2, device))
+        _cosine_similarity(_as_vector(song1, device), _as_vector(song2, device))
     )
 
 

@@ -1,4 +1,5 @@
-"""Batched PCM container shared by all analyzers."""
+"""Batched PCM container shared by all analyzers, the device rule of the
+entry points, and the extended features' column names."""
 
 from __future__ import annotations
 
@@ -6,6 +7,22 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+# Column names of the extended features after the 4 force-vector columns
+# (bliss_tpu/features/extended.py): `store export` names the wider rows that
+# bliss_tpu's --extended scans write. The features themselves are ROADMAP
+# item M8 of the port.
+EXTENDED_FEATURE_NAMES = (
+    "zero_crossing_rate",
+    "loudness_db",
+    "spectral_centroid_hz",
+    "spectral_rolloff_hz",
+    "spectral_flatness",
+    "bpm",
+    "beat_loudness",
+) + tuple(f"mfcc_{i}" for i in range(13)) + tuple(
+    f"mfcc_std_{i}" for i in range(13)
+) + tuple(f"chroma_{i:02d}" for i in range(12))
 
 
 def resolve_device(device) -> torch.device:

@@ -71,7 +71,22 @@ Phases, one line each, stopping at the first failure:
    mix streamed with the plain versions of the kernels counts the same
    beats; with the seconds a song of each route, the scan's songs/s and
    minutes of audio a second, its stages, the peak device memory while the
-   mix streams, and a ``torch.profiler`` trace of one streamed song.
+   mix streams, and a ``torch.profiler`` trace of one streamed song;
+10. similarity and the CLI (``bliss_tpu_torch.sim``, ``bliss_tpu_torch.cli``),
+   with TF32 asserted off: (a) a library of 100 000 rows around phase 4's
+   force vectors (sigma 3, 1 000 rows planted as exact copies of others), at
+   D = 4 and D = 49: ``nearest_neighbors_all`` (k=5, block 4096) against a
+   float64 NumPy brute force on 512 seeded rows and every planted pair (d^2
+   within the float32 Gram bound, indices equal where the gaps allow, each
+   copy's twin first at <= 1e-2), ``nearest_neighbors``, ``playlist_order``
+   (ties in index order), ``distance_matrix`` at 10k x 10k and ``kmeans``
+   (k=32, 50 iterations: two runs identical, the CPU Lloyd from the card's
+   k-means++ seeds within 1e-4), each timed with its peak device memory;
+   (b) the CLI's ``store neighbors``, ``dupes``, ``export`` and ``stats`` on
+   a 100 000-entry store; (c) the CLI from 65 FLAC files (one streamed):
+   ``scan`` through the prepass and K1 (rows as ``analyze_pcm``'s), then
+   ``playlist`` and ``radio`` resumed from the store (``pipeline.iter_decode``
+   patched, and logged, where libav's development files are missing).
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -856,6 +871,464 @@ def file_phase(rng, device, seconds: float, label: str) -> None:
         f"s cpu {label}")
 
 
+SIM_N = 100_000  # BASELINE.json config 5, scripts/bench_similarity.py's --n
+SIM_DUPES = 1_000
+SIM_K, SIM_BLOCK = 5, 4096  # the CLI's store neighbors: --top-k 5, the default block
+SIM_QUERIES = 512
+SIM_DIMS = (4, 49)  # the force vector; bench_similarity --dim 49 (core + extended)
+DM_N = 10_000  # scripts/demo_scale.py:42-43
+KM_K, KM_ITERS = 32, 50  # the CLI's radio setting is iters=50 (bliss_tpu/cli.py:330)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_text(device) -> str:
+    if torch.device(device).type != "cuda":
+        return "peak device memory not measured (no card)"
+    return f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+
+
+def host_times(fn, device, reps: int = 3) -> list[float]:
+    """Seconds of each of ``reps`` runs of ``fn`` after a warm one, each
+    ended by a synchronize."""
+    fn()
+    sync(device)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def times_text(times) -> str:
+    return (f"median of {len(times)} {statistics.median(times):.4f} s (least {min(times):.4f}, "
+            f"most {max(times):.4f})")
+
+
+def sim_library(vectors, n: int, dim: int, n_dupes: int, rng):
+    """Phase 10's library, [n, dim] float32: the force vectors ``vectors``
+    [V, 4] first, then each row one of them plus Gaussian noise of sigma 3
+    (scripts/bench_similarity.py:47-50), with dim - 4 synthetic columns of
+    the same sigma where dim > 4; then ``n_dupes`` rows overwritten as exact
+    copies of as many others. Returns (features, pairs [n_dupes, 2] of
+    (source, copy) rows; no row is in two pairs)."""
+    v = len(vectors)
+    f = vectors[rng.integers(v, size=n)].astype(np.float64) + 3.0 * rng.standard_normal((n, 4))
+    f[:v] = vectors
+    if dim > 4:
+        f = np.concatenate([f, 3.0 * rng.standard_normal((n, dim - 4))], axis=1)
+    pairs = (v + rng.choice(n - v, size=2 * n_dupes, replace=False)).reshape(2, n_dupes).T
+    f[pairs[:, 1]] = f[pairs[:, 0]]
+    return f.astype(np.float32), pairs
+
+
+def gram_bound(sq, rows, cols, dim: int):
+    """The float32 Gram form's error in d^2: (D + 4) 2^-23 (|q|^2 + |f|^2)."""
+    return (dim + 4) * 2.0**-23 * (sq[rows] + sq[cols])
+
+
+def brute_nearest(f64, sq, queries, k: int):
+    """Each query row's k + 2 nearest other rows by float64 NumPy: (d^2 by
+    differences, ascending, ties by index; their indices)."""
+    es, ids = [], []
+    for s in range(0, len(queries), 256):
+        q = queries[s : s + 256]
+        d2 = sq[q][:, None] + sq[None, :] - 2.0 * (f64[q] @ f64.T)
+        d2[np.arange(len(q)), q] = np.inf
+        cand = np.argpartition(d2, k + 2, axis=1)[:, : k + 2]
+        exact = ((f64[q][:, None, :] - f64[cand]) ** 2).sum(-1)
+        order = np.lexsort((cand, exact))  # by d^2, then by index
+        es.append(np.take_along_axis(exact, order, 1))
+        ids.append(np.take_along_axis(cand, order, 1))
+    return np.concatenate(es), np.concatenate(ids)
+
+
+def check_neighbors(f, pairs, d, idx, queries) -> str:
+    """``nearest_neighbors_all``'s rows ``queries`` against the float64
+    brute force: d^2 of each pair and of the true k nearest within the Gram
+    bound, indices equal wherever the gap to the next candidate is more
+    than twice the bound; every planted copy finds its twin first at a
+    distance <= 1e-2."""
+    dim, k = f.shape[1], idx.shape[1]
+    f64 = f.astype(np.float64)
+    sq = (f64 * f64).sum(1)
+    e, ei = brute_nearest(f64, sq, queries, k)
+    qi, pi = queries[:, None], idx[queries].astype(np.int64)
+    pd2 = d[queries].astype(np.float64) ** 2
+    if (pi == qi).any():
+        raise AssertionError("nearest_neighbors_all returned a query's own row")
+    exact = ((f64[queries][:, None, :] - f64[pi]) ** 2).sum(-1)
+    bound, bound_e = gram_bound(sq, qi, pi, dim), gram_bound(sq, qi, ei[:, :k], dim)
+    pair_err = float((np.abs(pd2 - exact) / bound).max())
+    rank_err = float((np.abs(pd2 - e[:, :k]) / bound_e).max())
+    if not (pair_err <= 1 and rank_err <= 1):
+        raise AssertionError(f"d^2 off the float64 brute force by {pair_err:.3f} (pairs), "
+                             f"{rank_err:.3f} (ranks) of the Gram bound")
+    padded = np.concatenate([np.full((len(queries), 1), -np.inf), e[:, : k + 1]], axis=1)
+    gap = np.minimum(padded[:, 1:-1] - padded[:, :-2], padded[:, 2:] - padded[:, 1:-1])
+    clear = gap > 2 * np.maximum(bound, bound_e)
+    bad = int(((pi != ei[:, :k]) & clear).sum())
+    if bad:
+        raise AssertionError(f"{bad} neighbours differ from the brute force where the gap allows")
+    src, dst = pairs[:, 0], pairs[:, 1]
+    first_ok = (idx[dst, 0] == src).all() and (idx[src, 0] == dst).all()
+    twin_d = np.concatenate([d[dst, 0], d[src, 0]])
+    if not (first_ok and twin_d.max() <= 1e-2):
+        raise AssertionError(f"planted copies: twin first {first_ok}, largest twin distance {twin_d.max()}")
+    return (f"d^2 within {max(pair_err, rank_err):.2e} of the Gram bound; indices equal to the "
+            f"brute force at all {int(clear.sum())} of {clear.size} ranks the gap allows; every "
+            f"planted copy finds its twin first, largest twin distance {twin_d.max():.2e}")
+
+
+def library_part(vectors, dim: int, device, label, rng) -> None:
+    """Phase 10 (a) at one width ``dim``: ``nearest_neighbors_all``,
+    ``nearest_neighbors``, ``playlist_order``, ``distance_matrix`` and
+    ``kmeans`` on the SIM_N-row library, each checked and timed, with the
+    peak device memory of each."""
+    from bliss_tpu_torch.sim import (distance, distance_matrix, kmeans, nearest_neighbors,
+                                     nearest_neighbors_all, playlist_order)
+    from bliss_tpu_torch.sim.kmeans import assign, init_centroids, lloyd
+
+    f, pairs = sim_library(vectors, SIM_N, dim, SIM_DUPES, rng)
+    tag = f"N={SIM_N} D={dim}"
+    fc = torch.from_numpy(f).to(device)
+    f64 = f.astype(np.float64)
+    sync(device)
+
+    reset_peak(device)
+    d, idx = (t.cpu().numpy() for t in nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK))
+    mem = peak_text(device)
+    times = host_times(lambda: nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK), device)
+    queries = np.unique(np.concatenate([rng.choice(SIM_N, SIM_QUERIES, replace=False), pairs.ravel()]))
+    verdict = check_neighbors(f, pairs, d, idx, queries)
+    # the float32 Gram form that bliss_tpu computes, for the planted pairs only
+    a, b = (fc[torch.from_numpy(pairs[:, j]).to(device)] for j in (1, 0))
+    g32 = (a * a).sum(1) + (b * b).sum(1) - 2.0 * (a @ b.T).diagonal()
+    twin32 = g32.clamp_min(0.0).sqrt().cpu().numpy()
+    log(f"similarity (a) {tag} nearest_neighbors_all k={SIM_K} block={SIM_BLOCK}: {times_text(times)}; "
+        f"{mem}; {len(queries)} query rows ({SIM_QUERIES} seeded, every planted pair) vs float64 NumPy: "
+        f"{verdict}; the float32 Gram form for the same pairs: largest twin distance "
+        f"{twin32.max():.2e}, {int((twin32 > 1e-2).sum())} of {len(twin32)} above 1e-2 {label}")
+
+    q = int(pairs[0].min())
+    twin = int(pairs[0].max())
+    reset_peak(device)
+    nd, ni = (t.cpu().numpy() for t in nearest_neighbors(fc, fc[q], 10))
+    mem = peak_text(device)
+    direct = np.sqrt(((f64 - f64[q]) ** 2).sum(1))
+    order = np.lexsort((np.arange(SIM_N), direct))[:11]
+    tol = (dim + 4) * 2.0**-23 * direct[order[:10]] + 1e-6
+    if list(ni[:2]) != [q, twin] or nd[1] != 0 or not (np.abs(nd - direct[order[:10]]) <= tol).all():
+        raise AssertionError(f"nearest_neighbors of row {q}: {ni} {nd}")
+    gaps = np.minimum(np.diff(np.r_[-np.inf, direct[order]])[:10], np.diff(direct[order]))
+    clear = gaps > 2 * tol
+    if (ni[clear] != order[:10][clear]).any():
+        raise AssertionError(f"nearest_neighbors of row {q}: {ni} against {order[:10]}")
+    times = host_times(lambda: nearest_neighbors(fc, fc[q], 10), device)
+    log(f"similarity (a) {tag} nearest_neighbors of row {q} (k=10): itself and its copy {twin} first "
+        f"at 0, the rest within float32 rounding of the brute force, {int(clear.sum())} of 10 ranks "
+        f"clear and equal; {times_text(times)}; {mem} {label}")
+
+    reset_peak(device)
+    order = playlist_order(fc, q).cpu().numpy()
+    mem = peak_text(device)
+    d32 = distance(fc, fc[q][None, :]).cpu().numpy()[order]
+    d64 = direct[order]
+    ties = d32[1:] == d32[:-1]
+    if not (np.array_equal(np.sort(order), np.arange(SIM_N)) and order[0] == q and order[1] == twin
+            and (np.diff(d32) >= 0).all() and (np.diff(order)[ties] > 0).all()
+            and (np.diff(d64) >= -(dim + 4) * 2.0**-23 * d64[1:]).all()):
+        raise AssertionError(f"playlist_order from row {q}: {order[:10]}")
+    times = host_times(lambda: playlist_order(fc, q), device)
+    log(f"similarity (a) {tag} playlist_order from row {q}: a permutation, the seed then its copy "
+        f"{twin} first, {int(ties.sum())} ties in index order, float64 distances non-decreasing "
+        f"within float32 rounding; {times_text(times)}; {mem} {label}")
+
+    reset_peak(device)
+    sub = fc[:DM_N]
+    dm = distance_matrix(sub)
+    mem = peak_text(device)
+    sq = (f64[:DM_N] ** 2).sum(1)
+    e2 = sq[:512, None] + sq[None, :] - 2.0 * (f64[:512] @ f64[:DM_N].T)
+    dm_err = float((np.abs(dm[:512].double().cpu().numpy() ** 2 - e2)
+                    / gram_bound(sq, np.arange(512)[:, None], np.arange(DM_N)[None, :], dim)).max())
+    if not (dm_err <= 1 and torch.equal(dm, dm.T) and bool((dm.diagonal() == 0).all())):
+        raise AssertionError(f"distance_matrix {DM_N}x{DM_N}: d^2 error {dm_err} of the Gram bound")
+    del dm
+    times = host_times(lambda: distance_matrix(sub), device)
+    log(f"similarity (a) D={dim} distance_matrix {DM_N}x{DM_N}: rows 0..511 within {dm_err:.2e} of "
+        f"the Gram bound, symmetric, zero diagonal; {times_text(times)}; {mem} {label}")
+
+    reset_peak(device)
+    start = init_centroids(fc, KM_K, seed=0)
+    cents, labels = kmeans(fc, KM_K, iters=KM_ITERS, seed=0)
+    mem = peak_text(device)
+    again = kmeans(fc, KM_K, iters=KM_ITERS, seed=0)
+    seeds_are_rows = all(bool((fc == s).all(1).any()) for s in start)
+    if not (torch.equal(cents, again[0]) and torch.equal(labels, again[1]) and seeds_are_rows
+            and torch.unique(start, dim=0).shape[0] == KM_K):
+        raise AssertionError("kmeans: two runs differ, or the k-means++ seeds are not distinct rows")
+    host = torch.from_numpy(f)
+    cc = lloyd(host, start.cpu(), KM_ITERS)
+    ca = assign(host, cc).numpy()
+    cents, labels = cents.cpu().numpy(), labels.cpu().numpy()
+    c_err = float((np.abs(cents - cc.numpy()).max(1) / np.abs(cc.numpy()).max(1)).max())
+    moved = np.nonzero(labels != ca)[0]
+    dc = np.sqrt(((f64[moved][:, None, :] - cc.numpy().astype(np.float64)[None]) ** 2).sum(-1))
+    near_tie = np.abs(dc[np.arange(len(moved)), labels[moved]] - dc[np.arange(len(moved)), ca[moved]]) \
+        <= 1e-4 * dc[np.arange(len(moved)), ca[moved]]
+    if not (c_err <= 1e-4 and near_tie.all()):
+        raise AssertionError(f"kmeans on the card vs the CPU Lloyd from its init: centroids "
+                             f"{c_err:.2e} relative, {int((~near_tie).sum())} assignments differ")
+    times = host_times(lambda: kmeans(fc, KM_K, iters=KM_ITERS, seed=0), device)
+    log(f"similarity (a) {tag} kmeans k={KM_K} iters={KM_ITERS}: two runs identical, the k-means++ "
+        f"seeds {KM_K} distinct rows; the CPU Lloyd from the card's seeds: centroids within "
+        f"{c_err:.2e} relative, {len(moved)} assignments differ (all within 1e-4 of a tie); "
+        f"{times_text(times)}; {mem} {label}")
+
+
+def run_cli(argv) -> tuple[str, float]:
+    """``bliss_tpu_torch.cli.main(argv)``: (its standard output, seconds);
+    raises unless it returns 0."""
+    import contextlib
+    import io
+
+    from bliss_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}: {buf.getvalue()[-2000:]}")
+    return buf.getvalue(), secs
+
+
+def read_csv(path) -> list[list[str]]:
+    import csv
+
+    with open(path, newline="") as fh:
+        return list(csv.reader(fh, delimiter=";"))
+
+
+def store_part(vectors, device, label, rng) -> None:
+    """Phase 10 (b): a FeatureStore holding the D = 4 library (names
+    lib/songNNNNNN.flac, the planted copies dupes/copyNNNN.flac), then the
+    CLI's ``store neighbors --top-k 5``, ``dupes``, ``export`` and ``stats``
+    on it, each timed. The neighbours CSV must be ``nearest_neighbors_all``
+    over ``similarity_rows`` row for row; ``dupes`` must list every planted
+    pair at a distance <= 1e-2."""
+    import tempfile
+
+    from bliss_tpu_torch.sim import nearest_neighbors_all
+    from bliss_tpu_torch.store import FeatureStore, similarity_rows
+
+    f, pairs = sim_library(vectors, SIM_N, 4, SIM_DUPES, rng)
+    names = [f"lib/song{i:06d}.flac" for i in range(SIM_N)]
+    for j, c in enumerate(pairs[:, 1]):
+        names[c] = f"dupes/copy{j:04d}.flac"
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "store")
+        t0 = time.perf_counter()
+        store = FeatureStore(path)
+        for i, (name, v) in enumerate(zip(names, f)):
+            store.put(f"k{i:06d}", v, {"filename": name})
+        store.flush()
+        fill_s = time.perf_counter() - t0
+        dev = ["--device", str(device), "store"]
+        reset_peak(device)
+        _, nb_s = run_cli(dev + ["neighbors", "--top-k", str(SIM_K), path, "-o", os.path.join(d, "n.csv")])
+        mem = peak_text(device)
+        _, dp_s = run_cli(dev + ["dupes", path, "-o", os.path.join(d, "d.csv")])
+        _, ex_s = run_cli(dev + ["export", path, "-o", os.path.join(d, "e.csv")])
+        stats, st_s = run_cli(dev + ["stats", path])
+        rows = read_csv(os.path.join(d, "n.csv"))[1:]
+        snames, feats = similarity_rows(FeatureStore(path))
+        dist, idx = (t.cpu().numpy() for t in nearest_neighbors_all(feats, SIM_K, device=device))
+        want = [[n] + [c for j in range(SIM_K) for c in (snames[idx[i, j]], f"{dist[i, j]:f}")]
+                for i, n in enumerate(snames)]
+        if rows != want:
+            bad = next(i for i, (a, b) in enumerate(zip(rows, want)) if a != b) if len(rows) == len(want) else -1
+            raise AssertionError(f"store neighbors CSV differs from nearest_neighbors_all at row {bad}")
+        dupes = {frozenset(r[:2]): float(r[2]) for r in read_csv(os.path.join(d, "d.csv"))[1:]}
+        planted = [dupes.get(frozenset((names[s], names[c]))) for s, c in pairs]
+        if any(x is None or x > 1e-2 for x in planted):
+            raise AssertionError(f"store dupes missed {sum(x is None for x in planted)} planted pairs")
+        exported = len(read_csv(os.path.join(d, "e.csv"))) - 1
+        if exported != SIM_N or f"entries: {SIM_N}" not in stats:
+            raise AssertionError(f"store export wrote {exported} rows; stats said {stats!r}")
+    log(f"similarity (b) the CLI's store commands on a {SIM_N}-entry store (filled in {fill_s:.2f} s): "
+        f"neighbors --top-k {SIM_K} {nb_s:.3f} s (its CSV = nearest_neighbors_all over "
+        f"similarity_rows, row for row; {mem}), dupes {dp_s:.3f} s ({len(dupes)} pairs, all "
+        f"{SIM_DUPES} planted at <= {max(planted):.2e}), export {ex_s:.3f} s, stats {st_s:.3f} s {label}")
+
+
+CLI_SONGS, CLI_SECONDS, CLI_LONG_SECONDS = 64, (20.0, 60.0), 240.0
+
+
+def cli_part(rng, device, label, batch: int = MAIN_B) -> dict:
+    """Phase 10 (c): a FLAC library written with the port's ``write_flac``
+    (CLI_SONGS ``synth_song``s of CLI_SECONDS and one of CLI_LONG_SECONDS,
+    above ``LONG_SONG_SAMPLES``, so that it streams); then the CLI's ``scan
+    --store``, ``playlist --store`` and ``radio --store``. Where libav's
+    development files are missing, ``pipeline.iter_decode`` is patched (and
+    says so) to yield the PCM that was written; the device path is not
+    patched. The scan must launch the prepass and K1 and give the rows of
+    ``analyze_pcm`` of the same PCM; the playlist and the radio resume every
+    row from the store (no launch, no ``device_dispatch``); the m3u order is
+    ``playlist_order`` of the scan's rows and the radio's lists are
+    ``kmeans``' clusters. Returns the scan's launches."""
+    import contextlib
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from bliss_tpu_torch import api, pipeline
+    from bliss_tpu_torch.io import DecodedAudio, decode
+    from bliss_tpu_torch.io.flac_writer import write_flac
+    from bliss_tpu_torch.sim import kmeans, playlist_order
+
+    secs = list(rng.uniform(*CLI_SECONDS, size=CLI_SONGS)) + [CLI_LONG_SECONDS]
+    songs = [synth_song(rng, 2 * int(s * SR)) for s in secs]
+    with tempfile.TemporaryDirectory() as d:
+        lib = os.path.join(d, "lib")
+        os.makedirs(lib)
+        files = [os.path.join(lib, f"song{i:02d}.flac") for i in range(len(songs))]
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+            list(pool.map(write_flac, files, [s.reshape(-1, 2) for s in songs], [SR] * len(songs),
+                          [{"TITLE": f"song {i}"} for i in range(len(songs))]))
+        write_s = time.perf_counter() - t0
+        real_decode = libav_present()
+        if real_decode:
+            decoded = {p: decode(p) for p in files}
+        else:
+            decoded = {p: DecodedAudio(s, 2, SR, 0, 2, 0, int(s.shape[0]) // (2 * SR), p, "",
+                                       f"song {i}", "", "", "")
+                       for i, (p, s) in enumerate(zip(files, songs))}
+
+        def fake_iter_decode(paths, **kw):
+            for p in paths:
+                yield p, decoded[p]
+
+        results = []
+        real_library = pipeline.analyze_library
+
+        def spy(*args, **kw):
+            results.append(real_library(*args, **kw))
+            return results[-1]
+
+        patches = [mock.patch.object(pipeline, "analyze_library", spy)]
+        if not real_decode:
+            log("similarity (c): no libav development files here, so pipeline.iter_decode is "
+                "patched in this part to yield the PCM each FLAC file was written from; the "
+                "device path is not patched")
+            patches.append(mock.patch.object(pipeline, "iter_decode", fake_iter_decode))
+        store, csv_path, m3u = (os.path.join(d, x) for x in ("store", "features.csv", "p.m3u"))
+        radio_dir = os.path.join(d, "radio")
+        os.makedirs(radio_dir)
+        dev = ["--device", str(device)]
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            reset_peak(device)
+            reset_counts()
+            _, scan_s = run_cli(dev + ["scan", lib, "--batch-size", str(batch), "--store", store,
+                                       "-o", csv_path])
+            scan_launches = launch_counts()
+            mem = peak_text(device)
+            scan = results[-1]
+            reset_counts()
+            _, pl_s = run_cli(dev + ["playlist", files[0], lib, "--store", store,
+                                     "--batch-size", str(batch), "-o", m3u])
+            pl_launches, pl_stats = launch_counts(), results[-1].stats
+            reset_counts()
+            radio_out, radio_s = run_cli(dev + ["radio", lib, "--clusters", "4", "--store", store,
+                                                "--output-dir", radio_dir])
+            radio_launches, radio_stats = launch_counts(), results[-1].stats
+        if scan.files != files or not scan.ok.all():
+            raise AssertionError(f"the CLI scan: files {scan.files[:3]}..., ok {scan.ok}, {scan.errors}")
+        want = {"prepass", "fused_all"}
+        if {k for k, v in scan_launches.items() if v} != want:
+            raise AssertionError(f"the CLI scan launched {scan_launches}; want {sorted(want)} only")
+        rows = read_csv(csv_path)[1:]
+        force = scan.force()
+        if rows != [[p] + [f"{v:f}" for v in (*scan.features[i], force[i])] for i, p in enumerate(files)]:
+            raise AssertionError("the scan's CSV is not its ScanResult")
+        pcm = [decoded[p] for p in files]
+        ref = np.concatenate([
+            api.analyze_pcm([x.samples for x in pcm[k : min(k + batch, len(pcm) - 1)]],
+                            [x.duration for x in pcm[k : min(k + batch, len(pcm) - 1)]], device=device)
+            for k in range(0, len(pcm) - 1, batch)]
+            + [api.analyze_pcm([pcm[-1].samples], [pcm[-1].duration], device=device)])
+        err = same_scores("the CLI scan", scan.features, ref, "analyze_pcm of the same PCM")
+        for name, launches, stats in (("playlist", pl_launches, pl_stats), ("radio", radio_launches, radio_stats)):
+            if any(launches.values()) or stats.get("device_dispatch", {"count": 0})["count"] or stats["decoded"]:
+                raise AssertionError(f"the CLI {name} did not resume every row from the store: "
+                                     f"launches {launches}, stages {sorted(stats)}")
+        order = playlist_order(scan.features, 0, device=device).cpu().numpy()
+        with open(m3u) as fh:
+            if fh.read().splitlines() != ["#EXTM3U"] + [os.path.abspath(files[i]) for i in order]:
+                raise AssertionError("the playlist m3u is not playlist_order of the scan's rows")
+        _, assign = kmeans(scan.features, 4, iters=50, device=device)
+        assign = assign.cpu().numpy()
+        for c in range(4):
+            with open(os.path.join(radio_dir, f"radio-{c:02d}.m3u")) as fh:
+                got = fh.read().splitlines()[1:]
+            if got != [os.path.abspath(files[i]) for i in np.nonzero(assign == c)[0]]:
+                raise AssertionError(f"radio-{c:02d}.m3u is not kmeans' cluster {c}")
+        extra = ""
+        if real_decode:
+            out_a, a_s = run_cli(dev + ["analyze", files[1]])
+            out_d, d_s = run_cli(dev + ["distance", files[1], files[2]])
+            fv = np.array(out_a.splitlines()[3].split(":")[1].strip(" ()").split(", "), np.float32)
+            same_scores("the CLI analyze", fv[None], scan.features[1:2], "its row in the scan")
+            dist = float(out_d.splitlines()[0].split(":")[1])
+            want_d = float(np.linalg.norm(scan.features[1].astype(np.float64) - scan.features[2]))
+            if not abs(dist - want_d) <= 1e-3:
+                raise AssertionError(f"the CLI distance {dist} against the scan's rows {want_d}")
+            extra = f"; analyze {a_s:.3f} s and distance {d_s:.3f} s agree with the scan's rows"
+    log(f"similarity (c) the CLI from {len(files)} FLAC files ({min(secs):.1f}-{max(secs[:-1]):.1f} s "
+        f"and one of {secs[-1]:.0f} s, streamed; written in {write_s:.1f} s; decode "
+        f"{'real' if real_decode else 'patched'}): scan --batch-size {batch} {scan_s:.3f} s "
+        f"(launches {scan_launches}; rows = analyze_pcm of the same PCM, beats identical, max |diff| "
+        f"{err.max():.2e}; {stage_line(scan.stats)}; {mem}), playlist {pl_s:.3f} s and radio "
+        f"--clusters 4 {radio_s:.3f} s ({radio_out.count("tracks")} lists) resumed every row from the store with no "
+        f"launch; the m3u is playlist_order of the scan's rows, the radio lists kmeans' clusters"
+        f"{extra} {label}")
+    return scan_launches
+
+
+def similarity_phase(vectors, device, label) -> dict:
+    """Phase 10: similarity and the CLI. (a) the library at SIM_N rows and
+    each width of SIM_DIMS; (b) the CLI's store commands; (c) the CLI from
+    files. TF32 must be off for the float32 products. Returns the CLI
+    scan's launches."""
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is allowed for float32 matmuls; phase 10 needs full float32")
+    rng = np.random.default_rng(SEED + 5)
+    for dim in SIM_DIMS:
+        library_part(vectors, dim, device, label, rng)
+    store_part(vectors, device, label, rng)
+    launches = cli_part(np.random.default_rng(SEED + 6), device, label)
+    log(f"similarity (phase 10) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -1110,6 +1583,9 @@ def main() -> int:
     # 9. long songs streamed, with the main batch's songs among them
     stream_launches = stream_phase(arrays, durations, {"main": out, "hybrid": outh}, "cuda", label)
 
+    # 10. similarity and the CLI, around the main path's force vectors
+    cli_launches = similarity_phase(out, "cuda", label)
+
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
@@ -1165,6 +1641,7 @@ def main() -> int:
         if e["name"] in scan_launches["main"]:
             e["scan_launches"] = {k: v[e["name"]] for k, v in scan_launches.items()}
             e["stream_launches"] = {k: v[e["name"]] for k, v in stream_launches.items()}
+            e["cli_scan_launches"] = cli_launches[e["name"]]
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -308,3 +308,44 @@ def test_matred_kernel_matches_plain(cuda, fit):
     assert report["rownz_agree"]
     if fit == (18, 200):
         assert report["energy_max_rel"] < 1e-9
+
+
+def _library(n=20_000):
+    rng = np.random.RandomState(6)
+    f = (rng.randn(n, 4) * 3 + np.array([-10, -10, -10, -15])).astype(np.float32)
+    f[n - 200 :] = f[:200]  # exact duplicates
+    return f
+
+
+def test_nearest_neighbors_all_on_gpu_matches_cpu(cuda):
+    """float64 products on both: the same float32 distances, and the same
+    neighbours wherever the CPU's row has no tie at that rank."""
+    from bliss_tpu_torch import sim
+
+    f = _library()
+    gd, gi = sim.nearest_neighbors_all(f, 5, block=4096, device=cuda)
+    cd, ci = sim.nearest_neighbors_all(f, 5, block=4096, device="cpu")
+    gd, gi, cd, ci = gd.cpu().numpy(), gi.cpu().numpy(), cd.numpy(), ci.numpy()
+    np.testing.assert_allclose(gd, cd, rtol=1e-6, atol=1e-6)
+    padded = np.concatenate([np.full((len(f), 1), -np.inf), cd, np.full((len(f), 1), np.inf)], axis=1)
+    clear = np.minimum(padded[:, 1:-1] - padded[:, :-2], padded[:, 2:] - padded[:, 1:-1]) > 1e-5
+    np.testing.assert_array_equal(gi[clear], ci[clear])
+    n = len(f)
+    assert (gi[n - 200 :, 0] == np.arange(200)).all() and (gd[n - 200 :, 0] <= 1e-3).all()
+
+
+def test_kmeans_on_gpu_matches_cpu_lloyd_from_the_same_init(cuda):
+    from bliss_tpu_torch import sim
+    from bliss_tpu_torch.sim.kmeans import assign, init_centroids, lloyd
+
+    f = _library()
+    g = torch.from_numpy(f).to(cuda)
+    c, a = sim.kmeans(g, 16, iters=30, seed=3)
+    c2, a2 = sim.kmeans(g, 16, iters=30, seed=3)
+    assert torch.equal(c, c2) and torch.equal(a, a2)
+    start = init_centroids(g, 16, seed=3)
+    rows = {tuple(r) for r in f.tolist()}
+    assert len({tuple(r) for r in start.cpu().tolist()} & rows) == 16
+    cc = lloyd(torch.from_numpy(f), start.cpu(), iters=30)
+    assert (c.cpu() - cc).abs().max() <= 1e-5 * cc.abs().max()
+    assert torch.equal(a.cpu(), assign(torch.from_numpy(f), cc))

@@ -6,7 +6,9 @@ every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant,
 runs the prepass sums and the stats kernel's CPU twin, writes two FLAC
 files with the port's writer and scans them with the port's
 ``analyze_library`` on the CPU (the native decoder built at first use), and
-streams a song with ``analyze_song_streaming``."""
+streams a song with ``analyze_song_streaming``, and runs the similarity
+(``kmeans``, ``nearest_neighbors_all``) and the port's CLI (``store
+neighbors`` on a small store)."""
 
 import os
 import subprocess
@@ -67,6 +69,26 @@ long_song = np.tile(song, 5)  # 150 000 samples: three rows of 2^16
 streamed = analyze_song_streaming(long_song, 3, bliss_tpu_torch.AnalysisConfig.for_gpu(), 1 << 16, device="cpu")
 whole = bliss_tpu_torch.analyze_pcm([long_song], [3], device="cpu")[0]
 assert streamed[0] == whole[0] and np.abs(streamed - whole).max() <= 1e-3, (streamed, whole)
+from bliss_tpu_torch import cli
+from bliss_tpu_torch.sim import kmeans, nearest_neighbors_all
+from bliss_tpu_torch.store import FeatureStore
+lib = np.concatenate([rng.randn(20, 4) + 8, rng.randn(20, 4) - 8]).astype(np.float32)
+cents, labels = kmeans(lib, 2, device="cpu")
+assert cents.shape == (2, 4) and len(set(labels[:20].tolist())) == 1 == len(set(labels[20:].tolist()))
+assert labels[0] != labels[20], labels
+dist, idx = nearest_neighbors_all(lib, 3, block=16, device="cpu")
+assert idx.shape == (40, 3) and (idx.numpy() != np.arange(40)[:, None]).all(), idx
+with tempfile.TemporaryDirectory() as d:
+    store = FeatureStore(d)
+    for i, v in enumerate(lib[:6]):
+        store.put(f"k{i}", v, {"filename": f"song{i}.flac"})
+    store.flush()
+    import contextlib, io
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        assert cli.main(["--device", "cpu", "store", "neighbors", d, "-o", f"{d}/n.csv"]) == 0
+    assert said.getvalue().startswith("wrote 6 x top-5 neighbors"), said.getvalue()
+    with open(f"{d}/n.csv") as f:
+        assert len(f.read().splitlines()) == 7
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())

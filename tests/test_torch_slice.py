@@ -20,14 +20,14 @@ from bliss_tpu_torch.config import AnalysisConfig
 from bliss_tpu_torch.convert import config_from_reference
 from bliss_tpu_torch.features.analyze import analyze_batch, force_and_class
 from bliss_tpu_torch.features.types import PCMBatch
-from bliss_tpu_torch.sim import distance as tdist
 
 torch.set_num_threads(1)
 # the plain versions' matmuls in full float32 wherever a GPU runs them
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-# the module, not the function that bliss_tpu.sim re-exports under its name
+# the modules, not the functions that each sim package re-exports under their name
 jdist = importlib.import_module("bliss_tpu.sim.distance")
+tdist = importlib.import_module("bliss_tpu_torch.sim.distance")
 
 
 def _songs():
