@@ -10,7 +10,9 @@ dict-style Mapping access, decode/analyze methods and context-manager usage
 reference's in-band BL_UNEXPECTED floats; thin ``*_file`` wrappers keep the
 legacy status-code behavior for drop-in use.
 
-``analyze_pcm`` analyzes decoded PCM and ``analyze_features`` a PCM batch.
+``analyze_pcm`` analyzes decoded PCM and ``analyze_features`` a PCM batch;
+both, and ``Song.extended_analysis``, give the 45 extended features
+(``features/extended.py``) when asked.
 Every entry point that analyzes runs on ``device``: the GPU unless the
 caller asks for the CPU (``device="cpu"``); it raises RuntimeError when no
 GPU is present. The main path's config is ``AnalysisConfig.for_gpu()``;
@@ -30,11 +32,12 @@ from bliss_tpu_torch import constants as C
 from bliss_tpu_torch.config import AnalysisConfig
 from bliss_tpu_torch.features.analyze import (
     analyze_batch,
+    analyze_batch_ext,
     analyze_batch_hybrid,
     force_and_class,
 )
 from bliss_tpu_torch.features import streaming
-from bliss_tpu_torch.features.types import PCMBatch, resolve_device
+from bliss_tpu_torch.features.types import EXTENDED_FEATURE_NAMES, PCMBatch, resolve_device
 from bliss_tpu_torch.io import DecodedAudio, DecodeError, decode as _decode
 from bliss_tpu_torch.sim.distance import cosine_similarity as _cosine_similarity
 from bliss_tpu_torch.sim.distance import distance as _distance
@@ -229,20 +232,43 @@ class Song(Mapping):
         _unported("frequency_analysis", "M7", "the XLA-path frequency score")
 
     def extended_analysis(
-        self, cfg: AnalysisConfig | None = None
+        self, cfg: AnalysisConfig | None = None, *, device=None
     ) -> dict[str, float]:
-        _unported("extended_analysis", "M8", "the extended features")
+        """The extended feature set (zero-crossing rate, loudness, spectral
+        centroid/rolloff/flatness, bpm, beat loudness, MFCC mean and std,
+        chroma) as a name -> value dict, analyzed on ``device`` (default:
+        the Song's). The band energies and the beat aux come from the
+        config's own device stage and envelope finish (``bliss_tpu`` takes
+        its band energies from the XLA path, ROADMAP M7 here); a song longer
+        than ``LONG_SONG_SAMPLES`` is streamed, as ``analyze`` does."""
+        device = resolve_device(device or self.device)
+        cfg = cfg or default_config()
+        if self.sample_array is None:
+            self.decode()
+        pcm = np.asarray(self.sample_array)
+        if pcm.shape[0] > LONG_SONG_SAMPLES and streaming.streaming_supports(cfg):
+            row = streaming.analyze_song_streaming(
+                pcm, self.duration, cfg, extended=True, device=device
+            )
+        else:
+            row = analyze_features(self._batch(cfg, device), cfg, extended=True)[0]
+        return dict(zip(EXTENDED_FEATURE_NAMES, map(float, row[4:])))
 
     def envelope_analysis(self, cfg: AnalysisConfig | None = None) -> tuple[float, float]:
         _unported("envelope_analysis", "M7", "the XLA-path tempo and attack scores")
 
 
-def analyze_features(batch: PCMBatch, cfg: AnalysisConfig) -> np.ndarray:
-    """[B, 4] float32 force vectors of a PCM batch under ``cfg``: a
+def analyze_features(
+    batch: PCMBatch, cfg: AnalysisConfig, extended: bool = False
+) -> np.ndarray:
+    """[B, 4] float32 force vectors of a PCM batch under ``cfg``, [B, 49]
+    with the extended features after them when ``extended``: a
     ``tempo_finish="host"`` config goes through ``analyze_batch_hybrid``,
-    any other through ``analyze_batch``."""
+    any other through ``analyze_batch`` (``analyze_batch_ext``)."""
     if cfg.tempo_finish == "host":
-        return analyze_batch_hybrid(batch, cfg).numpy()
+        return analyze_batch_hybrid(batch, cfg, extended).numpy()
+    if extended:
+        return analyze_batch_ext(batch, cfg).cpu().numpy()
     return analyze_batch(batch, cfg).cpu().numpy()
 
 
@@ -252,17 +278,19 @@ def analyze_pcm(
     *,
     cfg: AnalysisConfig | None = None,
     device="cuda",
+    extended: bool = False,
 ) -> np.ndarray:
     """[B, 4] float32 force vectors (tempo, amplitude, frequency, attack) of
     1-D int16 interleaved-stereo PCM arrays at 22.05 kHz, with each song's
     duration in whole seconds, analyzed on ``device``: the GPU unless the
     caller asks for the CPU (``device="cpu"``); raises RuntimeError when no
-    GPU is present."""
+    GPU is present. With ``extended``, [B, 49]: the 45 extended features
+    after the 4."""
     cfg = cfg or default_config()
     batch = PCMBatch.from_arrays(
         arrays, durations, pad_multiple=cfg.pad_multiple, device=device
     )
-    return analyze_features(batch, cfg)
+    return analyze_features(batch, cfg, extended)
 
 
 # --- module-level functions (reference: python/bliss/distance.py) -----------

@@ -16,10 +16,11 @@ with the same commands, arguments and output):
 Every command that analyzes or compares songs runs on ``--device`` (default
 ``cuda``, env fallback ``BLISS_TPU_TORCH_DEVICE``); without a GPU such a
 command fails unless it is given ``--device cpu``, and never falls back to
-the CPU. The options of parts the port does not run yet (``--mesh``,
-ROADMAP M10; ``--extended``, M8; ``--filterbank reference5|reference36``
-and any config ``check_supported`` refuses, M7) exit with status 2 before
-any decode or store write. ``gui``, ``doctor``, ``serve`` and ``call`` are
+the CPU. ``--extended`` adds the 45 extended features to ``analyze``'s
+report, ``scan``'s CSV and store rows, and ``radio``'s clustering. The
+options of parts the port does not run yet (``--mesh``, ROADMAP M10;
+``--filterbank reference5|reference36`` and any config ``check_supported``
+refuses, M7) exit with status 2 before any decode or store write. ``gui``, ``doctor``, ``serve`` and ``call`` are
 the rest of ROADMAP M11.
 
 Run: python -m bliss_tpu_torch.cli <command> ...
@@ -94,8 +95,6 @@ def _unported(args) -> str | None:
     ROADMAP item), or None."""
     if getattr(args, "mesh", None):
         return "--mesh (analysis over a device mesh) is ROADMAP item M10 of the port"
-    if getattr(args, "extended", False):
-        return "--extended (the extended features) is ROADMAP item M8 of the port"
     if getattr(args, "filterbank", None) in ("reference5", "reference36"):
         return f"--filterbank {args.filterbank} is ROADMAP item M7 of the port"
     if hasattr(args, "filterbank"):
@@ -161,6 +160,9 @@ def cmd_analyze(args) -> int:
         print(f"Album: {s.album}")
         print(f"Track number: {s.tracknumber}")
         print(f"Genre: {s.genre}")
+        if args.extended:
+            for name, value in s.extended_analysis(_band_config(args), device=device).items():
+                print(f"{name}: {value:f}")
     return status
 
 
@@ -273,20 +275,29 @@ def cmd_scan(args) -> int:
 
     result = analyze_library(
         files, cfg=_band_config(args), store=store,
-        batch_size=args.batch_size, progress=progress, device=device,
+        batch_size=args.batch_size, progress=progress, extended=args.extended,
+        device=device,
     )
     print("", file=sys.stderr)
+    from bliss_tpu_torch.features.types import EXTENDED_FEATURE_NAMES
+
     with open(args.output, "w", newline="") as f:
         # csv.writer so a filename containing ';' is quoted, not column-
         # shifting (byte-identical to raw joins otherwise)
         w = csv.writer(f, delimiter=";")
-        w.writerow(["filename", "tempo", "amplitude", "frequency", "attack", "force"])
+        header = ["filename", "tempo", "amplitude", "frequency", "attack", "force"]
+        if args.extended:
+            header += list(EXTENDED_FEATURE_NAMES)
+        w.writerow(header)
         force = result.force()
         for i, name in enumerate(files):
             if not result.ok[i]:
                 continue
             t, a, fr, k = result.features[i]
-            w.writerow([name] + [f"{v:f}" for v in (t, a, fr, k, force[i])])
+            row = [name] + [f"{v:f}" for v in (t, a, fr, k, force[i])]
+            if args.extended:
+                row += [f"{v:f}" for v in result.extended[i]]
+            w.writerow(row)
     bad = [f for f in result.errors]
     print(
         f"scanned {int(result.ok.sum())}/{len(files)} songs -> {args.output}"
@@ -312,10 +323,16 @@ def cmd_radio(args) -> int:
     store = FeatureStore(args.store) if args.store else None
     result = analyze_library(
         files, cfg=_band_config(args), store=store,
-        batch_size=args.batch_size, device=device,
+        batch_size=args.batch_size, extended=args.extended, device=device,
     )
     valid = [i for i in range(len(files)) if result.ok[i]]
-    _, assign = kmeans(result.features[valid], k=args.clusters, iters=50, device=device)
+    feats = result.features[valid]
+    if args.extended:
+        # z-score the richer vectors so every feature contributes equally
+        full = np.concatenate([feats, result.extended[valid]], axis=1)
+        mu, sd = full.mean(0), full.std(0)
+        feats = (full - mu) / np.maximum(sd, 1e-6)
+    _, assign = kmeans(feats, k=args.clusters, iters=50, device=device)
     assign = assign.cpu().numpy()
     for c in range(args.clusters):
         out = os.path.join(args.output_dir, f"radio-{c:02d}.m3u")
@@ -516,7 +533,7 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("files", nargs="+")
     a.add_argument(
         "--extended", action="store_true",
-        help="also print the extended feature set (ROADMAP item M8 of the port)",
+        help="also print the extended feature set",
     )
     _add_band_opts(a)
     a.set_defaults(fn=cmd_analyze)
@@ -557,7 +574,7 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--batch-size", type=int, default=16)
     sc.add_argument(
         "--extended", action="store_true",
-        help="also compute the extended feature set (ROADMAP item M8 of the port)",
+        help="also compute the extended feature set",
     )
     _add_mesh_opt(sc)
     _add_band_opts(sc)
@@ -571,8 +588,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--batch-size", type=int, default=16)
     r.add_argument(
         "--extended", action="store_true",
-        help="cluster on the z-scored extended feature vectors (ROADMAP item"
-        " M8 of the port)",
+        help="cluster on the z-scored extended feature vectors",
     )
     _add_mesh_opt(r)
     _add_band_opts(r)

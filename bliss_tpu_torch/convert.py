@@ -4,7 +4,8 @@ This system has no weights: its state is the constant tables and the
 analysis config. ``tables_from_numpy`` turns a dict of NumPy tables into the
 device-resident tensors the kernel and the plain versions read;
 ``config_from_reference`` rebuilds an ``AnalysisConfig`` from the JAX
-package's config as ``dataclasses.asdict`` gives it. The tests feed both with
+package's config as ``dataclasses.asdict`` gives it. ``extended_tables``
+puts the extended features' tables (``features/extended.py``) on a device. The tests feed both with
 what ``bliss_tpu`` itself built; at run time ``device_tables`` feeds them
 from this package's own ``tables.py``.
 """
@@ -75,6 +76,22 @@ def device_tables(
     return _cached_tables(
         nb_bands, band_taps, filterbank, iir_block, torch.device(device)
     )
+
+
+@functools.lru_cache(maxsize=16)
+def _cached_extended(device, dtype):
+    from bliss_tpu_torch.features import extended  # extended imports this module
+
+    return {
+        name: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device).contiguous()
+        for name, a in extended.reference_arrays().items()
+    }
+
+
+def extended_tables(device, dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """Per-device cache of the extended features' tables in ``dtype``
+    (float32 on the main path, float64 for its float64 variant)."""
+    return _cached_extended(torch.device(device), dtype)
 
 
 def config_from_reference(d: dict) -> AnalysisConfig:

@@ -42,6 +42,17 @@ tests' songs the streamed energies lie within 1e-9 relative of the batch
 path's (``tests/test_torch_streaming.py``), so row 0 needs no launch of its
 own without ``halo0``.
 
+With ``extended``, each group of rows also gives the extended features'
+per-song sums (``extended.partials``) from the rows' payload: a row counts
+its ``n_row // 1024`` payload frames and never its lookahead frame, and its
+mono pairs (m - 1, m) for 1 <= m < n_mono_row, where ``n_mono_row =
+clamp(n // 2 - r·CH / 2, 0, CH / 2 + 1)`` reaches one mono sample into the
+lookahead: the zero crossing between row r's last payload sample and row
+r + 1's first is counted once, in row r. The rows' sums add up in float64
+to the song's, and ``extended.finish`` makes the 45 columns with the
+prepass's exact sum of s^2 and the beat columns of the song's own envelope
+finish.
+
 On a CUDA tensor every step launches its kernel or raises; on the CPU the
 same wrappers run their plain versions.
 """
@@ -54,8 +65,14 @@ import numpy as np
 import torch
 
 from bliss_tpu_torch.config import AnalysisConfig, check_supported
+from bliss_tpu_torch.features.extended import EXTENDED_FEATURE_NAMES, Partials, finish, partials
 from bliss_tpu_torch.features.analyze import _amplitude_score, _mask_energies
-from bliss_tpu_torch.features.tempo import envelope_finish_device, envelope_finish_host
+from bliss_tpu_torch.features.tempo import (
+    beat_cols_from_host_aux,
+    beat_metrics,
+    envelope_finish_device,
+    envelope_finish_host,
+)
 from bliss_tpu_torch.features.types import PCMBatch, resolve_device
 from bliss_tpu_torch.kernels import fused_all
 from bliss_tpu_torch.kernels import fused_stats as fs
@@ -82,7 +99,8 @@ class Streamed(NamedTuple):
     prepass's exact (sum s, sum s^2); ``alpha``, ``beta``, ``mean`` its
     normalization; ``start``, ``end`` the trim bounds; ``amplitude`` and
     ``frequency`` the [1] scores; ``energies`` the masked window energies
-    [1, NB, R·CH/256] float64."""
+    [1, NB, R·CH/256] float64; ``ext`` the song's extended ``Partials``
+    [1, ...] when asked for, else None."""
 
     song: PCMBatch
     sums: tuple
@@ -94,13 +112,16 @@ class Streamed(NamedTuple):
     amplitude: torch.Tensor
     frequency: torch.Tensor
     energies: torch.Tensor
+    ext: Partials | None = None
 
 
 def stream_stage(
-    samples: np.ndarray, duration: int, cfg: AnalysisConfig, chunk_samples: int, device
+    samples: np.ndarray, duration: int, cfg: AnalysisConfig, chunk_samples: int, device,
+    extended: bool = False,
 ) -> Streamed:
     """Steps 1-4 of the module docstring but the envelope finish, on
-    ``device``, for one int16 song of any length."""
+    ``device``, for one int16 song of any length; with ``extended`` also the
+    extended features' sums of its rows."""
     CH, FR, BLK = int(chunk_samples), stft.FRAME, fs.BLK
     samples = np.ascontiguousarray(samples, dtype=np.int16)
     n = int(samples.shape[0])
@@ -119,11 +140,12 @@ def stream_stage(
     halo0 = torch.where(before >= 0, x[before.clamp(min=0)],
                         mean.clamp(-32768, 32767).to(torch.int16))
     n_rows = (n - starts).clamp(0, CH).to(torch.int32)
+    n_mono = (n // 2 - starts // 2).clamp(0, CH // 2 + 1)
 
     rows_all = x.unfold(0, CH + FR, CH)  # [R, CH + 1024], overlapping views
     group = max(1, GROUP_SAMPLES // (CH + FR))
     keep = CH // BLK
-    wsum, rownz, energies = [], [], []
+    wsum, rownz, energies, parts = [], [], [], []
     power = torch.zeros(stft.NBINS + 1, dtype=torch.float64, device=device)
     for g0 in range(0, R, group):
         rows = rows_all[g0 : g0 + group].contiguous()
@@ -135,6 +157,8 @@ def stream_stage(
         else:
             w, z, e = fs.fused_stats_call(rows, a, b, h, conv_mode=cfg.fused_conv, **kw)
             p = stft.stft_power(rows, n_g, precise=cfg.stft_conv == "precise")
+        if extended:
+            parts.append(partials(rows, stft.frame_counts(n_g), n_mono[g0 : g0 + g]).total())
         del rows  # before the next group's copy
         wsum.append(w[:, :keep])
         rownz.append(z[:, :keep])
@@ -155,6 +179,7 @@ def stream_stage(
     return Streamed(
         song, sums, alpha, beta, mean, start, end, _amplitude_score(integral),
         stft.frequency_scores_from_power(power[None], cfg), _mask_energies(song, fa),
+        Partials(*(sum(ts) for ts in zip(*parts))) if extended else None,
     )
 
 
@@ -171,22 +196,43 @@ def analyze_song_streaming(
     one int16 interleaved-stereo song of any length, with its duration in
     whole seconds, analyzed on ``device`` (the GPU unless the caller asks
     for the CPU; raises RuntimeError when no GPU is present) in rows of
-    ``chunk_samples``, a multiple of 1024. Raises NotImplementedError for a
-    config the port does not run and for ``extended`` (ROADMAP M8)."""
+    ``chunk_samples``, a multiple of 1024; with ``extended``, [4 + 45], the
+    extended features after the 4, their beat columns from the same
+    envelope finish as the tempo. Raises NotImplementedError for a config
+    the port does not run."""
     check_supported(cfg)
-    if extended:
-        raise NotImplementedError("the extended features are ROADMAP item M8")
     if chunk_samples <= 0 or chunk_samples % stft.FRAME:
         raise ValueError("chunk_samples must be a multiple of 1024")
-    st = stream_stage(samples, duration, cfg, chunk_samples, resolve_device(device))
+    st = stream_stage(samples, duration, cfg, chunk_samples, resolve_device(device), extended)
     fa, song = st.energies, st.song
-    if cfg.tempo_finish == "host":
-        # one device-to-host copy: amplitude, frequency, energies
-        packed = torch.cat([st.amplitude.to(torch.float64),
-                            st.frequency.to(torch.float64), fa.reshape(-1)]).cpu().numpy()
-        tempo, attack = envelope_finish_host(
-            packed[2:].reshape(fa.shape), [len(samples)], [duration]
+    n, d = song.n_samples, song.durations
+    host = cfg.tempo_finish == "host"
+    if extended and host:
+        # zero beat columns here: the host finish writes them from its aux
+        zero = torch.zeros(1, dtype=torch.float32, device=fa.device)
+        cols = finish(st.ext, n, st.sums[1], zero, zero)
+    if host:
+        # one device-to-host copy: amplitude, frequency, energies (+ extended)
+        parts = [st.amplitude.to(torch.float64), st.frequency.to(torch.float64), fa.reshape(-1)]
+        if extended:
+            parts.append(cols[0].to(torch.float64))
+        packed = torch.cat(parts).cpu().numpy()
+        end = 2 + fa.numel()
+        finished = envelope_finish_host(
+            packed[2:end].reshape(fa.shape), [len(samples)], [duration], return_aux=extended
         )
-        return np.array([tempo[0], packed[0], packed[1], attack[0]], np.float32)
-    tempo, attack = envelope_finish_device(fa, song.n_samples, song.durations, cfg)
-    return torch.stack([tempo, st.amplitude, st.frequency, attack], dim=1)[0].cpu().numpy()
+        core = np.array([finished[0][0], packed[0], packed[1], finished[1][0]], np.float32)
+        if not extended:
+            return core
+        row = packed[end:].astype(np.float32)
+        bpm, loud = beat_cols_from_host_aux(finished[2], [duration])
+        row[EXTENDED_FEATURE_NAMES.index("bpm")] = bpm[0]
+        row[EXTENDED_FEATURE_NAMES.index("beat_loudness")] = loud[0]
+        return np.concatenate([core, row])
+    if not extended:
+        tempo, attack = envelope_finish_device(fa, n, d, cfg)
+        return torch.stack([tempo, st.amplitude, st.frequency, attack], dim=1)[0].cpu().numpy()
+    tempo, attack, aux = envelope_finish_device(fa, n, d, cfg, return_aux=True)
+    bpm, loud = beat_metrics(fa, n, d, cfg, aux=aux)
+    core = torch.stack([tempo, st.amplitude, st.frequency, attack], dim=1)
+    return torch.cat([core, finish(st.ext, n, st.sums[1], bpm, loud)], dim=1)[0].cpu().numpy()

@@ -16,16 +16,22 @@ the host (the "host" finish of the hybrid config), stage for stage alike.
 The JAX package's double-single emulation (``tempo_exact.py``,
 ``dsp/ddmath.py``) exists only because the TPU lacks float64 and has no
 counterpart here.
+
+The extended features' bpm and beat_loudness come from the same detection:
+``beat_metrics`` from the device finish's ``return_aux``,
+``beat_cols_from_host_aux`` from the host finish's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bliss_tpu_torch import constants as C
 from bliss_tpu_torch.config import AnalysisConfig
@@ -67,11 +73,13 @@ def _envelope_pipeline(fa, n, cfg: AnalysisConfig):
     return wa, wa_edges, ss_src, last_excluded, j, n2
 
 
-def _count_beats(ss_src, wa, last_excluded, j, n2):
+def _count_beats(ss_src, wa, last_excluded, j, n2, return_aux=False):
     """Two rectangular filters + epsilon peak count (reference :258-280).
 
     ss_src: band-summed envelope; wa: the buffer whose stale values the
-    reference's in-place pass 1 leaves at the edges. Returns int64 [B]."""
+    reference's in-place pass 1 leaves at the edges. Returns int64 [B];
+    with ``return_aux`` also (r2 smoothed envelope, peak mask over
+    r2[:, 1:-1], mid-valid mask) for the extended beat columns."""
     width = C.RECT_FILTER_WIDTH
     n2c = n2[:, None]
 
@@ -94,12 +102,20 @@ def _count_beats(ss_src, wa, last_excluded, j, n2):
     d_next = r2[:, 1:-1] - r2[:, 2:]
     inrange = j[:, 1:-1] <= (n2 - 2)[:, None]
     peaks = (d_prev > C.PEAK_EPSILON) & (d_next > C.PEAK_EPSILON) & inrange
-    return torch.sum(peaks, dim=1)
+    beat = torch.sum(peaks, dim=1)
+    if return_aux:
+        return beat, (r2, peaks, mid)
+    return beat
 
 
-def envelope_finish_device(fa, n, durations, cfg: AnalysisConfig):
+def envelope_finish_device(fa, n, durations, cfg: AnalysisConfig, return_aux: bool = False):
     """fa [B, NB, NBF] band energies, n/durations [B] -> ([B] tempo,
-    [B] attack) float32, computed in float64 on fa's device."""
+    [B] attack) float32, computed in float64 on fa's device.
+
+    With ``return_aux`` also returns ``(beat, r2, peaks, mid)``: the beat
+    count, the smoothed envelope, the peak mask padded to r2's full length
+    and the valid-range mask, from the same detection that gave the tempo
+    (``bliss_tpu/features/tempo.py:247-254``), for ``beat_metrics``."""
     if cfg.tempo_finish != "device_exact":
         raise NotImplementedError(
             f"tempo_finish={cfg.tempo_finish!r} does not finish on the device "
@@ -107,11 +123,50 @@ def envelope_finish_device(fa, n, durations, cfg: AnalysisConfig):
         )
     wa, wa_edges, ss_src, last_excluded, j, n2 = _envelope_pipeline(fa, n, cfg)
     atk_sum = torch.sum(wa * last_excluded[:, None, :], dim=(1, 2))
-    beat = _count_beats(ss_src, wa_edges, last_excluded, j, n2)
+    beat, (r2, peaks, mid) = _count_beats(
+        ss_src, wa_edges, last_excluded, j, n2, return_aux=True
+    )
     # duration <= 0 gives an inf/nan tempo: the reference's own behavior
     tempo = C.TEMPO_SCALE * beat.to(torch.float64) / durations.to(torch.float64) + C.TEMPO_BIAS
     attack = C.ATTACK_SCALE * atk_sum / n.to(torch.float64) + C.ATTACK_BIAS
+    if return_aux:
+        # peaks cover r2[:, 1:-1]: pad them to r2's length, one aux layout
+        aux = (beat, r2, F.pad(peaks, (1, 1)), mid)
+        return tempo.to(torch.float32), attack.to(torch.float32), aux
     return tempo.to(torch.float32), attack.to(torch.float32)
+
+
+def beat_metrics(fa, n, durations, cfg: AnalysisConfig, aux=None):
+    """The extended beat columns ([B] bpm, [B] beat_loudness) float32, from
+    band energies fa [B, NB, NBF], computed in float64 on fa's device.
+
+    bpm: the detected beats per minute, from the same epsilon-peak detector
+    the tempo score counts. beat_loudness: the mean smoothed envelope at the
+    detected beats over its mean across the valid range (>1: beats stand
+    out; ~1: a flat envelope).
+
+    ``aux``: ``(beat, r2, peaks, mid)`` of ``envelope_finish_device(...,
+    return_aux=True)``, so that core and extended columns come from one
+    envelope chain and bpm · duration / 60 is the core's beat count in every
+    row; without it the same finish runs here."""
+    if aux is None:
+        if cfg.tempo_finish == "host":
+            # the host finish's float64 chain is the device finish's
+            cfg = dataclasses.replace(cfg, tempo_finish="device_exact")
+        _, _, aux = envelope_finish_device(fa, n, durations, cfg, return_aux=True)
+    beat, r2, peaks, mid = aux
+    dur = durations.to(torch.float64)
+    bpm = 60.0 * beat.to(torch.float64) / dur
+    # duration <= 0: the core tempo stays inf (the reference's behavior),
+    # but the extended column reports 0, as a negative duration does
+    bpm = torch.where(torch.isfinite(bpm) & (dur > 0), bpm, torch.zeros_like(bpm))
+    zero = torch.zeros_like(r2)
+    peak_mean = torch.where(peaks, r2, zero).sum(dim=1) / peaks.sum(dim=1).clamp(min=1)
+    env_mean = torch.where(mid, r2, zero).sum(dim=1) / mid.sum(dim=1).clamp(min=1)
+    loud = peak_mean / torch.maximum(env_mean, torch.full_like(env_mean, 1e-12))
+    # a silent song (NaN envelope) reports 0, as its beat count is 0
+    loud = torch.where(torch.isfinite(loud), loud, torch.zeros_like(loud))
+    return bpm.to(torch.float32), loud.to(torch.float32)
 
 
 def _box_sum_host(x, width):
@@ -212,3 +267,30 @@ def envelope_finish_host(
     if return_aux:
         return tempo.astype(np.float32), attack.astype(np.float32), (r2, peaks, mid)
     return tempo.astype(np.float32), attack.astype(np.float32)
+
+
+def beat_cols_from_host_aux(aux, durations):
+    """([B] bpm, [B] beat_loudness) float32 NumPy from
+    ``envelope_finish_host``'s ``return_aux`` triple ``(r2, peaks, mid)``
+    (peaks over r2[:, 1:-1]): the float64 host counterpart of
+    ``beat_metrics(aux=...)``. The hybrid and streamed host finishes take
+    the extended beat columns from the same detection as the tempo."""
+    r2, peaks, mid = aux
+    dur = np.asarray(durations, np.float64)
+    beat = np.count_nonzero(peaks, axis=1)
+    bpm = 60.0 * beat / np.where(dur > 0, dur, np.inf)
+    # masked sums without a masked copy of the [B, 2 NBF] envelope
+    peak_mean = np.sum(r2[:, 1:-1], axis=1, where=peaks) / np.maximum(beat, 1.0)
+    env_mean = np.sum(r2, axis=1, where=mid) / np.maximum(np.count_nonzero(mid, axis=1), 1.0)
+    loud = peak_mean / np.maximum(env_mean, 1e-12)
+    loud = np.where(np.isfinite(loud), loud, 0.0)
+    bpm = np.where(np.isfinite(bpm), bpm, 0.0)
+    return bpm.astype(np.float32), loud.astype(np.float32)
+
+
+def beat_metrics_host(fa, n_samples, durations):
+    """``beat_metrics`` on the host in float64: [B, NBF] or [B, NB, NBF]
+    NumPy energies -> ([B] bpm, [B] beat_loudness) float32, through
+    ``envelope_finish_host``'s chain."""
+    _, _, aux = envelope_finish_host(fa, n_samples, durations, workers=1, return_aux=True)
+    return beat_cols_from_host_aux(aux, durations)

@@ -9,9 +9,9 @@ import numpy as np
 import torch
 
 # Column names of the extended features after the 4 force-vector columns
-# (bliss_tpu/features/extended.py): `store export` names the wider rows that
-# bliss_tpu's --extended scans write. The features themselves are ROADMAP
-# item M8 of the port.
+# (features/extended.py computes them; bliss_tpu/features/extended.py has
+# the same names): `store export` names the 49-column rows that an
+# --extended scan of either package writes.
 EXTENDED_FEATURE_NAMES = (
     "zero_crossing_rate",
     "loudness_db",

@@ -100,12 +100,16 @@ def fused_all_stats(
     nb_bands: int = 1,
     band_taps: int = 17,
     filterbank: str = "firwin",
+    sums=None,
 ):
     """samples: int16 [B, L]; n_samples: int32 [B].
 
     Returns (amp_integral [B], energies [B, NB, NW], power [B, 257]): the
-    prepass, the fused call, the trim bounds and the amplitude integral."""
-    alpha, beta, _ = fs.normalization(samples, n_samples)
+    prepass, the fused call, the trim bounds and the amplitude integral.
+    ``sums``: the prepass's ``(sum s, sum s^2)`` when the caller has run it."""
+    if sums is None:
+        sums = fs.prepass_sums(samples, n_samples)
+    alpha, beta, _ = fs.normalization_from_sums(*sums, n_samples)
     wsum, rownz, energies, power = fused_all_call(
         samples, alpha, beta, stft.frame_counts(n_samples), nb_bands=nb_bands,
         band_taps=band_taps, filterbank=filterbank,

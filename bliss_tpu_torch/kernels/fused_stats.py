@@ -556,12 +556,16 @@ def fused_sample_stats(
     band_taps: int = 17,
     filterbank: str = "firwin",
     conv_mode: str = "split",
+    sums=None,
 ):
     """samples: int16 [B, L]; n_samples: int32 [B].
 
     Returns (amp_integral [B], energies [B, NB, NW]): the prepass, the stats
-    call, the trim bounds and the amplitude integral."""
-    alpha, beta, _ = normalization(samples, n_samples)
+    call, the trim bounds and the amplitude integral. ``sums``: the
+    prepass's ``(sum s, sum s^2)`` when the caller has run it."""
+    if sums is None:
+        sums = prepass_sums(samples, n_samples)
+    alpha, beta, _ = normalization_from_sums(*sums, n_samples)
     wsum, rownz, energies = fused_stats_call(
         samples, alpha, beta, nb_bands=nb_bands, band_taps=band_taps,
         filterbank=filterbank, conv_mode=conv_mode,

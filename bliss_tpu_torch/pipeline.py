@@ -20,8 +20,11 @@ A song longer than ``long_song_samples`` skips the buckets: the pool thread
 streams it alone through ``features/streaming.analyze_song_streaming``, whose
 cost grows with the song rather than with a bucket of 64 such songs.
 
-Not ported yet: a ``mesh`` (ROADMAP M10) and ``extended=True`` (M8) raise
-NotImplementedError.
+``extended=True`` adds the 45 extended features (``features/extended.py``)
+to every row, from the same device pass and envelope finish, on every route
+(batch, hybrid, streamed); store entries then hold the 49 columns.
+
+Not ported yet: a ``mesh`` (ROADMAP M10) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,9 +38,9 @@ import numpy as np
 import torch
 
 from bliss_tpu_torch.config import AnalysisConfig, check_supported
-from bliss_tpu_torch.features.analyze import analyze_batch, launch_hybrid
+from bliss_tpu_torch.features.analyze import analyze_batch, analyze_batch_ext, launch_hybrid
 from bliss_tpu_torch.features.streaming import analyze_song_streaming, streaming_supports
-from bliss_tpu_torch.features.types import PCMBatch, resolve_device
+from bliss_tpu_torch.features.types import EXTENDED_FEATURE_NAMES, PCMBatch, resolve_device
 from bliss_tpu_torch.io import iter_decode
 from bliss_tpu_torch.store.feature_store import FeatureStore
 from bliss_tpu_torch.utils import StageTimer, get_logger, log_event
@@ -57,7 +60,7 @@ class ScanResult:
     ok: np.ndarray  # [N] bool
     errors: dict[str, str]
     stats: dict
-    extended: np.ndarray | None = None  # always None until ROADMAP M8
+    extended: np.ndarray | None = None  # [N, len(EXTENDED_FEATURE_NAMES)]
 
     def force(self) -> np.ndarray:
         t, a, f, k = (self.features[:, i] for i in range(4))
@@ -70,9 +73,11 @@ def _dispatch_analysis(
     durations: np.ndarray,
     cfg: AnalysisConfig,
     device: torch.device,
+    extended: bool = False,
 ):
     """Start device analysis of a padded host batch; returns a callable that
-    blocks and yields the [B, 4] float32 features (the async half).
+    blocks and yields the [B, 4] float32 features (the async half), [B, 49]
+    with ``extended``.
 
     The PCM is copied to ``device`` here (from pageable memory, so the
     copy blocks this thread); the launches that follow are asynchronous on
@@ -88,9 +93,9 @@ def _dispatch_analysis(
     )
     if cfg.tempo_finish == "host":
         # one packed float64 output = one device->host copy per batch
-        finish = launch_hybrid(batch, cfg)
+        finish = launch_hybrid(batch, cfg, extended)
         return lambda: finish(n_samples, durations)
-    fut = analyze_batch(batch, cfg)
+    fut = analyze_batch_ext(batch, cfg) if extended else analyze_batch(batch, cfg)
     return lambda: fut.cpu().numpy()
 
 
@@ -128,7 +133,11 @@ def analyze_library(
     instead of padded into a bucket; their time shows as the ``streaming``
     stage. ``None`` sends every song through the buckets.
 
-    progress: optional callback (done, total, message).
+    progress: optional callback (done, total, message). With
+    ``extended=True`` the 45 extended features are computed in the same
+    device pass and returned in ``ScanResult.extended``; store entries then
+    carry the 49-column vector, and a cached entry is taken only when its
+    width is the scan's.
 
     Cancellation (the batch analog of the reference GUI's worker-thread
     cancel Event, reference python/examples/analyze_gui.py:51-58): pass a
@@ -141,8 +150,6 @@ def analyze_library(
     """
     if mesh is not None:
         raise NotImplementedError("analysis over a mesh is ROADMAP item M10")
-    if extended:
-        raise NotImplementedError("the extended features are ROADMAP item M8")
     device = resolve_device(device)
     if cfg is None:
         from bliss_tpu_torch.api import default_config
@@ -160,12 +167,14 @@ def analyze_library(
 
     _ru0 = _resource.getrusage(_resource.RUSAGE_SELF)
     n_total = len(files)
+    width = 4 + (len(EXTENDED_FEATURE_NAMES) if extended else 0)
     result = ScanResult(
         list(files),
         np.full((n_total, 4), np.nan, np.float32),
         np.zeros(n_total, bool),
         {},
         {},
+        np.full((n_total, width - 4), np.nan, np.float32) if extended else None,
     )
     features, ok, errors = result.features, result.ok, result.errors
     done = 0
@@ -197,8 +206,10 @@ def analyze_library(
                     continue
                 fps[i] = fp
                 cached = store.get(fp)
-                if cached is not None and cached.shape[0] == 4:
+                if cached is not None and cached.shape[0] == width:
                     features[i] = cached[:4]
+                    if extended:
+                        result.extended[i] = cached[4:]
                     ok[i] = True
                 else:
                     todo.append(i)
@@ -236,6 +247,7 @@ def analyze_library(
         cancel=cancel,
         handle_sigint=handle_sigint,
         long_song_samples=long_song_samples,
+        extended=extended,
     )
 
     stats = timer.report()
@@ -279,15 +291,20 @@ def _scan(
     cancel=None,
     handle_sigint: bool = False,
     long_song_samples: int | None = LONG_SONG_SAMPLES,
+    extended: bool = False,
 ) -> bool:
     """``analyze_library``'s loop after decode: takes ``(index, DecodedAudio
     | None)`` pairs in scan order (None: the file failed to decode), buckets
     them, dispatches full buckets and the rest at the end, streams each song
     longer than ``long_song_samples`` on the pool thread, and writes each
     song's row, ``ok`` flag or error into ``result`` (and ``store``, for the
-    indices in ``fps``). Returns whether the scan was cancelled."""
+    indices in ``fps``); with ``extended`` also each song's extended row
+    into ``result.extended`` (made NaN here if it is None), and 49-column
+    store entries. Returns whether the scan was cancelled."""
     check_supported(cfg)
     files, features, ok, errors = result.files, result.features, result.ok, result.errors
+    if extended and result.extended is None:
+        result.extended = np.full((len(files), len(EXTENDED_FEATURE_NAMES)), np.nan, np.float32)
     fps = fps or {}
     n_total = len(files)
 
@@ -333,7 +350,7 @@ def _scan(
             n_samples = np.array([a.shape[0] for a in arrays], np.int32)
             durations = np.array(durs, np.int32)
         with timer.stage("device_dispatch"):
-            fin = _dispatch_analysis(samples, n_samples, durations, cfg, device)
+            fin = _dispatch_analysis(samples, n_samples, durations, cfg, device, extended)
 
         def timed_fin(fin=fin):
             # time INSIDE the pool thread: thread_time() from the main
@@ -356,6 +373,8 @@ def _scan(
             feats = fut.result()
         for (i, d), row in zip(entries, feats):
             features[i] = row[:4]
+            if extended:
+                result.extended[i] = row[4:]
             ok[i] = True
             done += 1
             if store is not None and i in fps:
@@ -420,7 +439,7 @@ def _scan(
                     def _stream_one(d=decoded):
                         with timer.stage("streaming"):
                             return analyze_song_streaming(
-                                d.samples, d.duration, cfg, device=device
+                                d.samples, d.duration, cfg, extended=extended, device=device
                             )[None, :]
 
                     in_flight.append(

@@ -74,8 +74,9 @@ Phases, one line each, stopping at the first failure:
    mix streams, and a ``torch.profiler`` trace of one streamed song;
 10. similarity and the CLI (``bliss_tpu_torch.sim``, ``bliss_tpu_torch.cli``),
    with TF32 asserted off: (a) a library of 100 000 rows around phase 4's
-   force vectors (sigma 3, 1 000 rows planted as exact copies of others), at
-   D = 4 and D = 49: ``nearest_neighbors_all`` (k=5, block 4096) against a
+   force vectors and, at D = 49, phase 11 (a)'s 45 extended columns of the
+   same songs (sigma 3 in every column, 1 000 rows planted as exact copies
+   of others), at D = 4 and D = 49: ``nearest_neighbors_all`` (k=5, block 4096) against a
    float64 NumPy brute force on 512 seeded rows and every planted pair (d^2
    within the float32 Gram bound, indices equal where the gaps allow, each
    copy's twin first at <= 1e-2), ``nearest_neighbors``, ``playlist_order``
@@ -86,7 +87,24 @@ Phases, one line each, stopping at the first failure:
    a 100 000-entry store; (c) the CLI from 65 FLAC files (one streamed):
    ``scan`` through the prepass and K1 (rows as ``analyze_pcm``'s), then
    ``playlist`` and ``radio`` resumed from the store (``pipeline.iter_decode``
-   patched, and logged, where libav's development files are missing).
+   patched, and logged, where libav's development files are missing);
+11. the extended features (``features/extended.py``), run after phase 9
+   and before phase 10: (a) ``api.analyze_features(..., extended=True)`` on
+   the main batch under ``for_gpu()``, the two-kernel config and
+   ``for_gpu_hybrid()``: the prepass and K1 (or K2 and K3) once, as
+   without extended; the 4 core columns identical to phases 4 and 5; bpm ·
+   duration / 60 the core beat count in every row; the 45 columns within
+   ``EXTENDED_GATES`` of the same function with its per-frame stage in
+   float64 on the card, and hybrid within them of main; ``analyze_batch``
+   with and without extended (CUDA events, median of 5) and the peak device
+   memory each adds (the extended path at most 2 GiB more), the stage alone
+   and a trace; (b) phase 9's long songs and mix streamed with extended
+   under both configs against each song whole at B=1, with the seconds a
+   song; (c) one extended scan of phase 8's 192 songs (``pipeline._scan``,
+   held within the gates of ``analyze_features``), and, inside phase 10 (c)
+   on its files, the CLI's ``scan --extended`` (49-column store rows, the
+   plain scan's core rows) and ``radio --extended`` (``kmeans`` of the
+   z-scored rows, resumed from the store).
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -253,6 +271,35 @@ def device_trace(fn):
             f"{sum(t for _, t in by_name.values()) / 1e3:.3f} ms), {len(dev) - nk} copies and "
             f"sets ({copy_us / 1e3:.3f} ms); most time: " + "; ".join(
                 f"{short(name)} x{n} {t / 1e3:.3f} ms" for name, (n, t) in top))
+
+
+def op_table(fn, top: int = 12) -> str:
+    """One warm run of ``fn`` under ``torch.profiler``: its device time by
+    PyTorch operator (the kernels each operator launched), the ``top``
+    operators with the most. A reading, not a gate: "not measured" with the
+    reason where the profiler gives no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+
+        def device_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+        # operators only: each kernel's time is also its own row
+        rows = sorted(((e.key, e.count, device_us(e)) for e in prof.key_averages()
+                       if e.key.startswith("aten::")), key=lambda r: -r[2])
+    except Exception as exc:  # a reading, not a gate
+        return f"not measured ({type(exc).__name__}: {exc})"
+    total = sum(t for _, _, t in rows)
+    if total <= 0:
+        return "not measured (key_averages holds no device time)"
+    return f"{total / 1e3:.3f} ms of device time: " + "; ".join(
+        f"{k} x{c} {t / 1e3:.3f} ms" for k, c, t in rows[:top] if t > 0)
 
 
 def compare(name, got, ref, denom, tol):
@@ -557,14 +604,16 @@ def stage_line(stats: dict) -> str:
         f"x{stats[s]['count']}" for s in STAGES if s in stats)
 
 
-def scan_phase(songs, durs, cfg, name, device, batch_size, label, runs=3, trace=True):
+def scan_phase(songs, durs, cfg, name, device, batch_size, label, runs=3, trace=True,
+               extended=False):
     """Phase 8 (a): ``pipeline._scan`` (``analyze_library``'s loop after
     decode) on ``songs`` as decoded audio, ``runs`` times, each run held
     against ``api.analyze_features`` of the same songs in batches of
     ``batch_size`` on ``device``, and each run's launches counted: the
     kernels that ``cfg``'s path runs must launch and no other. Then, with
-    ``trace``, one more run under ``torch.profiler``. Returns the last
-    run's launches."""
+    ``trace``, one more run under ``torch.profiler``. With ``extended``
+    (phase 11 (c)) the scan and its yardstick give the 45 extended columns
+    too, held within EXTENDED_GATES. Returns the last run's launches."""
     from bliss_tpu_torch import api, pipeline
     from bliss_tpu_torch.features.types import PCMBatch
     from bliss_tpu_torch.io import DecodedAudio
@@ -572,7 +621,7 @@ def scan_phase(songs, durs, cfg, name, device, batch_size, label, runs=3, trace=
 
     ref = np.concatenate([
         api.analyze_features(PCMBatch.from_arrays(
-            songs[k:k + batch_size], durs[k:k + batch_size], device=device), cfg)
+            songs[k:k + batch_size], durs[k:k + batch_size], device=device), cfg, extended)
         for k in range(0, len(songs), batch_size)])
     decoded = [DecodedAudio(s, 2, SR, 0, 2, 0, d, f"synth-{i}", "", "", "", "", "")
                for i, (s, d) in enumerate(zip(songs, durs))]
@@ -587,7 +636,7 @@ def scan_phase(songs, durs, cfg, name, device, batch_size, label, runs=3, trace=
                                      np.full((n, 4), np.nan, np.float32), np.zeros(n, bool), {}, {})
         timer = StageTimer()
         cancelled = pipeline._scan(result, enumerate(decoded), cfg=cfg, batch_size=batch_size,
-                                   device=torch.device(device), timer=timer)
+                                   device=torch.device(device), timer=timer, extended=extended)
         return result, timer.report(), cancelled
 
     want = {"prepass", "fused_all"} if cfg.single_pass else {"prepass", "fused_stats", "stft_power"}
@@ -600,9 +649,15 @@ def scan_phase(songs, durs, cfg, name, device, batch_size, label, runs=3, trace=
         if cancelled or result.errors or not result.ok.all():
             raise AssertionError(f"the {name} scan: cancelled {cancelled}, errors {result.errors}, "
                                  f"ok {int(result.ok.sum())} of {n}")
-        col_err = same_scores(f"{name} scan", result.features, ref,
+        col_err = same_scores(f"{name} scan", result.features, ref[:, :4],
                               "analyze_features of the same songs at L=2^23")
-        log(f"pipeline (a) {name} scan {run} of {n} songs at B={batch_size}, buckets "
+        what = "pipeline (a)"
+        if extended:
+            errs = ext_gates(f"{name} extended scan", result.extended, ref[:, 4:], durs)
+            bpm_counts_beats(f"{name} extended scan", np.concatenate(
+                [result.features, result.extended], axis=1), durs)
+            what = f"extended (phase 11) (c) {gates_text(errs)};"
+        log(f"{what} {name} scan {run} of {n} songs at B={batch_size}, buckets "
             f"{dict(sorted(buckets.items()))}: launches {launches}; every row ok, beat counts "
             f"identical to analyze_features of the same songs, max |diff| amplitude "
             f"{col_err[0]:.2e} frequency {col_err[1]:.2e} attack {col_err[2]:.2e}; "
@@ -678,7 +733,8 @@ def stream_phase(short, short_durs, short_rows, device, label) -> dict:
     counts the same beats. Prints the seconds a song of each route, the
     scan's songs/s and minutes of audio a second, its stages, the peak
     device memory while the mix streams, and a trace of one streamed song.
-    Runs on ``device``; returns each config's scan launches."""
+    Runs on ``device``; returns each config's scan launches, and the long
+    songs and their durations."""
     from bliss_tpu_torch import AnalysisConfig, pipeline
     from bliss_tpu_torch.features import streaming
     from bliss_tpu_torch.io import DecodedAudio
@@ -805,7 +861,7 @@ def stream_phase(short, short_durs, short_rows, device, label) -> dict:
     log(f"streaming trace of the {LONG_MAX}-sample song (main): "
         f"{device_trace(lambda: streaming.analyze_song_streaming(songs[-2], durs[-2], main, device=device))} {label}")
     log(f"streaming (phase 9) took {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, songs, durs
 
 
 def libav_present() -> bool:
@@ -917,17 +973,19 @@ def times_text(times) -> str:
 
 
 def sim_library(vectors, n: int, dim: int, n_dupes: int, rng):
-    """Phase 10's library, [n, dim] float32: the force vectors ``vectors``
-    [V, 4] first, then each row one of them plus Gaussian noise of sigma 3
-    (scripts/bench_similarity.py:47-50), with dim - 4 synthetic columns of
-    the same sigma where dim > 4; then ``n_dupes`` rows overwritten as exact
-    copies of as many others. Returns (features, pairs [n_dupes, 2] of
-    (source, copy) rows; no row is in two pairs)."""
+    """Phase 10's library, [n, dim] float32: the rows ``vectors`` [V, >= dim]
+    (phase 4's force vectors and phase 11's extended columns), cut to their
+    first dim columns, first; then each row one of them plus Gaussian noise
+    of sigma 3 (scripts/bench_similarity.py:47-50) in every column; then
+    ``n_dupes`` rows overwritten as exact copies of as many others. Returns
+    (features, pairs [n_dupes, 2] of (source, copy) rows; no row is in two
+    pairs)."""
     v = len(vectors)
-    f = vectors[rng.integers(v, size=n)].astype(np.float64) + 3.0 * rng.standard_normal((n, 4))
-    f[:v] = vectors
+    pick = rng.integers(v, size=n)
+    f = vectors[pick, :4].astype(np.float64) + 3.0 * rng.standard_normal((n, 4))
     if dim > 4:
-        f = np.concatenate([f, 3.0 * rng.standard_normal((n, dim - 4))], axis=1)
+        f = np.concatenate([f, vectors[pick, 4:dim] + 3.0 * rng.standard_normal((n, dim - 4))], axis=1)
+    f[:v] = vectors[:, :dim]
     pairs = (v + rng.choice(n - v, size=2 * n_dupes, replace=False)).reshape(2, n_dupes).T
     f[pairs[:, 1]] = f[pairs[:, 0]]
     return f.astype(np.float32), pairs
@@ -1269,11 +1327,17 @@ def cli_part(rng, device, label, batch: int = MAIN_B) -> dict:
         if rows != [[p] + [f"{v:f}" for v in (*scan.features[i], force[i])] for i, p in enumerate(files)]:
             raise AssertionError("the scan's CSV is not its ScanResult")
         pcm = [decoded[p] for p in files]
-        ref = np.concatenate([
-            api.analyze_pcm([x.samples for x in pcm[k : min(k + batch, len(pcm) - 1)]],
-                            [x.duration for x in pcm[k : min(k + batch, len(pcm) - 1)]], device=device)
-            for k in range(0, len(pcm) - 1, batch)]
-            + [api.analyze_pcm([pcm[-1].samples], [pcm[-1].duration], device=device)])
+
+        def pcm_rows(extended=False):
+            return np.concatenate([
+                api.analyze_pcm([x.samples for x in pcm[k : min(k + batch, len(pcm) - 1)]],
+                                [x.duration for x in pcm[k : min(k + batch, len(pcm) - 1)]],
+                                device=device, extended=extended)
+                for k in range(0, len(pcm) - 1, batch)]
+                + [api.analyze_pcm([pcm[-1].samples], [pcm[-1].duration], device=device,
+                                   extended=extended)])
+
+        ref = pcm_rows()
         err = same_scores("the CLI scan", scan.features, ref, "analyze_pcm of the same PCM")
         for name, launches, stats in (("playlist", pl_launches, pl_stats), ("radio", radio_launches, radio_stats)):
             if any(launches.values()) or stats.get("device_dispatch", {"count": 0})["count"] or stats["decoded"]:
@@ -1301,6 +1365,8 @@ def cli_part(rng, device, label, batch: int = MAIN_B) -> dict:
             if not abs(dist - want_d) <= 1e-3:
                 raise AssertionError(f"the CLI distance {dist} against the scan's rows {want_d}")
             extra = f"; analyze {a_s:.3f} s and distance {d_s:.3f} s agree with the scan's rows"
+        ext_line = cli_extended_part(lib, files, [x.duration for x in pcm], pcm_rows(True), scan,
+                                     patches, results, d, device, batch, label)
     log(f"similarity (c) the CLI from {len(files)} FLAC files ({min(secs):.1f}-{max(secs[:-1]):.1f} s "
         f"and one of {secs[-1]:.0f} s, streamed; written in {write_s:.1f} s; decode "
         f"{'real' if real_decode else 'patched'}): scan --batch-size {batch} {scan_s:.3f} s "
@@ -1309,7 +1375,70 @@ def cli_part(rng, device, label, batch: int = MAIN_B) -> dict:
         f"--clusters 4 {radio_s:.3f} s ({radio_out.count("tracks")} lists) resumed every row from the store with no "
         f"launch; the m3u is playlist_order of the scan's rows, the radio lists kmeans' clusters"
         f"{extra} {label}")
+    log(ext_line)
     return scan_launches
+
+
+def cli_extended_part(lib, files, durs, ref, scan, patches, results, d, device, batch, label) -> str:
+    """Phase 11 (c), on phase 10 (c)'s files and under its patches: the
+    CLI's ``scan --extended`` into a store of its own, then ``radio
+    --extended`` resumed from it. The scan launches the prepass and K1 only;
+    its CSV has the 45 columns after the 6 and its core rows are the plain
+    scan's ``scan``; its extended rows lie within EXTENDED_GATES of ``ref``,
+    ``analyze_pcm(..., extended=True)`` of the same PCM, and count the core
+    beats; its store entries have 49 columns. The radio resumes every row
+    and its lists are ``kmeans`` of the z-scored 49-column rows. Returns
+    the line to log."""
+    import contextlib
+
+    from bliss_tpu_torch.features.types import EXTENDED_FEATURE_NAMES
+    from bliss_tpu_torch.sim import kmeans
+    from bliss_tpu_torch.store import FeatureStore
+
+    store, csv_path, radio_dir = (os.path.join(d, x) for x in ("ext_store", "ext.csv", "ext_radio"))
+    os.makedirs(radio_dir)
+    dev = ["--device", str(device)]
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        reset_counts()
+        _, scan_s = run_cli(dev + ["scan", lib, "--batch-size", str(batch), "--store", store,
+                                   "--extended", "-o", csv_path])
+        scan_launches = launch_counts()
+        escan = results[-1]
+        reset_counts()
+        _, radio_s = run_cli(dev + ["radio", lib, "--clusters", "4", "--store", store, "--extended",
+                                    "--output-dir", radio_dir])
+        radio_launches, radio_stats = launch_counts(), results[-1].stats
+    if {k for k, v in scan_launches.items() if v} != {"prepass", "fused_all"} or not escan.ok.all():
+        raise AssertionError(f"the CLI scan --extended launched {scan_launches}, ok {escan.ok}")
+    if not np.array_equal(escan.features, scan.features):
+        raise AssertionError("the CLI scan --extended's core rows differ from the plain scan's")
+    rows = read_csv(csv_path)
+    force = escan.force()
+    if rows[0][6:] != list(EXTENDED_FEATURE_NAMES) or rows[1:] != [
+            [p] + [f"{v:f}" for v in (*escan.features[i], force[i], *escan.extended[i])]
+            for i, p in enumerate(files)]:
+        raise AssertionError("the CSV of scan --extended is not its ScanResult")
+    errs = ext_gates("the CLI scan --extended", escan.extended, ref[:, 4:], durs)
+    bpm_counts_beats("the CLI scan --extended", np.concatenate([escan.features, escan.extended], 1), durs)
+    widths = {v.shape[0] for _, v in FeatureStore(store).items()}
+    if widths != {49}:
+        raise AssertionError(f"the extended store holds rows of widths {widths}")
+    if any(radio_launches.values()) or radio_stats.get("device_dispatch", {"count": 0})["count"]:
+        raise AssertionError(f"radio --extended did not resume from the store: {radio_launches}")
+    full = np.concatenate([escan.features, escan.extended], axis=1)
+    z = (full - full.mean(0)) / np.maximum(full.std(0), 1e-6)
+    assign = kmeans(z, 4, iters=50, device=device)[1].cpu().numpy()
+    for c in range(4):
+        with open(os.path.join(radio_dir, f"radio-{c:02d}.m3u")) as fh:
+            if fh.read().splitlines()[1:] != [os.path.abspath(files[i]) for i in np.nonzero(assign == c)[0]]:
+                raise AssertionError(f"radio --extended's list {c} is not kmeans' cluster {c}")
+    return (f"extended (phase 11) (c) the CLI from the same {len(files)} files: scan --extended "
+            f"{scan_s:.3f} s (launches {scan_launches}; core rows the plain scan's; {gates_text(errs)} "
+            f"of analyze_pcm(extended=True); bpm counts the core beats; 49-column store rows; "
+            f"{stage_line(escan.stats)}), radio --extended {radio_s:.3f} s resumed every row, its "
+            f"lists kmeans of the z-scored 49-column rows {label}")
 
 
 def similarity_phase(vectors, device, label) -> dict:
@@ -1327,6 +1456,200 @@ def similarity_phase(vectors, device, label) -> dict:
     launches = cli_part(np.random.default_rng(SEED + 6), device, label)
     log(f"similarity (phase 10) took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def ext_gates(label, got, ref, durations) -> dict:
+    """The 45 extended columns ``got`` against ``ref`` [N, 45], each group
+    within its EXTENDED_GATES gate (bpm as beats: |diff| · duration / 60);
+    both finite. Returns {gate name: (max error, gate)}; raises on a miss."""
+    from bliss_tpu_torch.features.extended import EXTENDED_GATES
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or got.shape[1] != 45 or not (np.isfinite(got).all()
+                                                            and np.isfinite(ref).all()):
+        raise AssertionError(f"{label}: extended rows not finite [N, 45]: {got.shape}, {ref.shape}")
+    dur = np.asarray(durations, np.float64)[:, None]
+    errs = {}
+    for name, lo, hi, gate in EXTENDED_GATES:
+        d = np.abs(got[:, lo:hi] - ref[:, lo:hi]) * (dur / 60.0 if lo == 5 else 1.0)
+        errs[name] = (float(d.max()), gate)
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"{label}: outside EXTENDED_GATES: {bad}")
+    return errs
+
+
+def gates_text(errs) -> str:
+    return "max |diff| " + ", ".join(f"{k} {e:.2e} (gate {g:g})" for k, (e, g) in errs.items())
+
+
+def bpm_counts_beats(label, rows, durations) -> float:
+    """bpm · duration / 60 (column 9 of the 49) equals the core's beat count
+    (from the tempo column) in every row with a positive duration; returns
+    the largest |difference| in beats."""
+    dur = np.asarray(durations, np.float64)
+    beats = beat_counts(rows, dur)
+    got = rows[:, 9].astype(np.float64) * dur / 60.0
+    diff = np.abs(got - beats)[dur > 0]
+    if not (diff <= 1e-3).all():
+        raise AssertionError(f"{label}: bpm · duration / 60 is not the core beat count: {diff.max()}")
+    return float(diff.max())
+
+
+def extended_phase(batch, plain_rows, cfgs, label) -> tuple[dict, dict]:
+    """Phase 11 (a): ``api.analyze_features(..., extended=True)`` on the
+    card-resident main batch under each of ``cfgs`` (main, two-kernel,
+    hybrid): launches the prepass and K1 (or K2 and K3) once, as without
+    extended; the 4 core columns identical to ``plain_rows[name]``, the same
+    config without extended; bpm counts the core beats; the 45 columns
+    within EXTENDED_GATES of the same function with its per-frame stage in
+    float64 on the card, and hybrid within them of main. Then each config's
+    ``analyze_batch`` with and without extended (CUDA events, median of 5),
+    the stage alone, the peak device memory of each, and a trace. Returns
+    ({config: rows [B, 49]}, {config: launches})."""
+    from bliss_tpu_torch import api
+    from bliss_tpu_torch.features import extended as ext
+    from bliss_tpu_torch.features.analyze import _device_stage_sums, analyze_batch, analyze_batch_ext
+    from bliss_tpu_torch.features.tempo import (
+        beat_cols_from_host_aux,
+        envelope_finish_device,
+        envelope_finish_host,
+    )
+
+    t0 = time.perf_counter()
+    durs = batch.durations.cpu().numpy()
+    rows, launches = {}, {}
+    for name, cfg in cfgs.items():
+        reset_counts()
+        rows[name] = api.analyze_features(batch, cfg, extended=True)
+        launches[name] = launch_counts()
+        want = {"prepass": 1, "fused_all": 1, "fused_stats": 0, "stft_power": 0} if cfg.single_pass \
+            else {"prepass": 1, "fused_all": 0, "fused_stats": 1, "stft_power": 1}
+        if launches[name] != want:
+            raise AssertionError(f"the extended {name} path launched {launches[name]}; want {want}")
+        if rows[name].shape != (MAIN_B, 49) or not np.array_equal(rows[name][:, :4], plain_rows[name]):
+            raise AssertionError(f"the extended {name} path's core columns differ from its plain run's")
+        bpm_counts_beats(f"the extended {name} path", rows[name], durs)
+    main = cfgs["main"]
+    amp, freq, fa, sums = _device_stage_sums(batch, main)
+    _, _, aux = envelope_finish_device(fa, batch.n_samples, batch.durations, main, return_aux=True)
+    f64 = ext.extended_features(batch, main, fa=fa, beat_aux=aux, sums=sums, dtype=torch.float64)
+    f64 = f64.cpu().numpy()
+    for name in cfgs:
+        errs = ext_gates(f"extended {name} vs float64", rows[name][:, 4:], f64, durs)
+        log(f"extended (phase 11) (a) {name} B={MAIN_B} L=2^23 through api.analyze_features: "
+            f"launches {launches[name]} (as without extended); core columns identical to the "
+            f"plain run's; bpm · duration / 60 = the core beats in every row; vs the float64 "
+            f"stage on the card: {gates_text(errs)}")
+    errs = ext_gates("extended hybrid vs main", rows["hybrid"][:, 4:], rows["main"][:, 4:], durs)
+    log(f"extended (phase 11) (a) hybrid vs main: {gates_text(errs)}")
+
+    frames = int(torch.div(batch.n_samples, 1024, rounding_mode="floor").sum())
+    counted_gflop = 2.0 * frames * 512 * 514 / 1e9
+    log(f"extended (phase 11) (a) the stage's work: {frames} counted frames of "
+        f"{MAIN_B * MAIN_L // 1024}; the dense DFT product of the counted frames "
+        f"{counted_gflop / 1e3:.3f} TFLOP = {counted_gflop / 67e3 * 1e3:.3f} ms at 67 TFLOP/s fp32; "
+        f"the PCM read once {batch.samples.numel() * 2 / 3.35e9:.3f} ms at 3.35 TB/s")
+    for name, cfg in cfgs.items():
+        times = {}
+        peaks = {}
+        for what, fn in (("plain", lambda: analyze_batch(batch, cfg)),
+                         ("extended", lambda: analyze_batch_ext(batch, cfg))):
+            times[what] = cuda_ms(fn)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks[what] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        added = peaks["extended"] - peaks["plain"]
+        if not added <= 2.0:
+            raise AssertionError(f"the extended {name} path adds {added:.3f} GiB of peak memory (> 2)")
+        log(f"extended (phase 11) (a) {name} analyze_batch B={MAIN_B} L=2^23, CUDA events, warm median "
+            f"of 5: {times['plain']:.3f} ms plain, {times['extended']:.3f} ms extended (+"
+            f"{times['extended'] - times['plain']:.3f}); peak device memory above the "
+            f"{before / 2**30:.2f} GiB held: {peaks['plain']:.3f} GiB plain, {peaks['extended']:.3f} "
+            f"GiB extended (+{added:.3f} GiB) {label}")
+    hyb = cfgs["hybrid"]
+    fa_h = _device_stage_sums(batch, hyb)[2].cpu().numpy()
+    n_h, d_h = batch.n_samples.cpu().numpy(), batch.durations.cpu().numpy()
+    finish_s = {}
+    for what, fn in (("plain", lambda: envelope_finish_host(fa_h, n_h, d_h)),
+                     ("with the beat columns", lambda: beat_cols_from_host_aux(
+                         envelope_finish_host(fa_h, n_h, d_h, return_aux=True)[2], d_h))):
+        fn()
+        secs = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t1)
+        finish_s[what] = statistics.median(secs)
+    log(f"extended (phase 11) (a) the hybrid's float64 host finish, median of 5 on "
+        f"{os.cpu_count()} host cores: " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in finish_s.items()) + f" {label}")
+    stage = cuda_ms(lambda: ext.extended_features(batch, main, fa=fa, beat_aux=aux, sums=sums))
+    stage64 = cuda_ms(lambda: ext.extended_features(batch, main, fa=fa, beat_aux=aux, sums=sums,
+                                                    dtype=torch.float64))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ext.extended_features(batch, main, fa=fa, beat_aux=aux, sums=sums)
+    torch.cuda.synchronize()
+    stage_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    log(f"extended (phase 11) (a) the stage alone (extended_features from the core's energies, "
+        f"aux and sums), warm median of 5: {stage:.3f} ms float32, {stage64:.3f} ms float64; "
+        f"its peak {stage_peak:.3f} GiB above the {before / 2**30:.2f} GiB held {label}")
+    log(f"extended (phase 11) (a) analyze_batch_ext trace: "
+        f"{device_trace(lambda: analyze_batch_ext(batch, main))} {label}")
+    log(f"extended (phase 11) (a) the stage alone by operator: "
+        f"{op_table(lambda: ext.extended_features(batch, main, fa=fa, beat_aux=aux, sums=sums))} "
+        f"{label}")
+    log(f"extended (phase 11) (a) took {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
+def extended_stream_part(songs, durs, device, label) -> None:
+    """Phase 11 (b): phase 9's long songs and the 60-minute mix streamed with
+    ``extended=True`` under ``for_gpu()`` and ``for_gpu_hybrid()``, each
+    against the song whole at B=1 in its bucket (``analyze_features(...,
+    extended=True)``): the core as phase 9 (b) holds it, the 45 columns
+    within EXTENDED_GATES, bpm counting the core beats; the seconds a song
+    with and without extended, and the launches of one streamed song."""
+    from bliss_tpu_torch import AnalysisConfig, api, pipeline
+    from bliss_tpu_torch.features import streaming
+    from bliss_tpu_torch.features.types import PCMBatch
+
+    t0 = time.perf_counter()
+    main = AnalysisConfig.for_gpu()
+    whole = []
+    for s, d in zip(songs, durs):
+        x = torch.zeros(1, pipeline._bucket_length(s.shape[0], main.pad_multiple), dtype=torch.int16,
+                        device=device)
+        x[0, : s.shape[0]].copy_(torch.from_numpy(s))
+        n_t, d_t = (torch.full((1,), v, dtype=torch.int32, device=device) for v in (s.shape[0], d))
+        whole.append(api.analyze_features(PCMBatch(x, n_t, d_t), main, extended=True)[0])
+        del x
+    whole = np.stack(whole)
+    for name, cfg in (("main", main), ("hybrid", AnalysisConfig.for_gpu_hybrid())):
+        rows, secs = [], []
+        for s, d in zip(songs, durs):
+            t1 = time.perf_counter()
+            rows.append(streaming.analyze_song_streaming(s, d, cfg, extended=True, device=device))
+            secs.append(time.perf_counter() - t1)
+        rows = np.stack(rows)
+        plain = stream_rows(songs, durs, cfg, streaming.DEFAULT_CHUNK, device)[1]
+        core = same_scores(f"streamed extended {name}", rows[:, :4], whole[:, :4],
+                           "each song whole at B=1")
+        errs = ext_gates(f"streamed extended {name}", rows[:, 4:], whole[:, 4:], durs)
+        bpm_counts_beats(f"streamed extended {name}", rows, durs)
+        log(f"extended (phase 11) (b) {name}: {len(songs)} songs streamed with extended against each "
+            f"whole at B=1 in its bucket: beats identical, core max |diff| {core.max():.2e}; "
+            f"{gates_text(errs)}; seconds a song, extended {secs_line(secs)}, plain "
+            f"{secs_line(plain)} {label}")
+    reset_counts()
+    streaming.analyze_song_streaming(songs[-2], durs[-2], main, extended=True, device=device)
+    log(f"extended (phase 11) (b) the {songs[-2].shape[0]}-sample song streamed with extended: "
+        f"launches {launch_counts()}; (b) took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1499,7 +1822,7 @@ def main() -> int:
         t1 = time.perf_counter()
         host = packed.cpu().numpy()
         t2 = time.perf_counter()
-        amp_h, freq_h, fa_h = _unpack_stage(host, hyb, MAIN_L)
+        amp_h, freq_h, fa_h, _ = _unpack_stage(host, hyb, MAIN_L)
         envelope_finish_host(fa_h, batch.n_samples.cpu().numpy(), batch.durations.cpu().numpy())
         t3 = time.perf_counter()
         stage_s.append(t1 - t0)
@@ -1581,10 +1904,27 @@ def main() -> int:
             "native decoder cannot be built here; file decode is checked on the CPU only")
 
     # 9. long songs streamed, with the main batch's songs among them
-    stream_launches = stream_phase(arrays, durations, {"main": out, "hybrid": outh}, "cuda", label)
+    stream_launches, long_pcm, long_durs = stream_phase(
+        arrays, durations, {"main": out, "hybrid": outh}, "cuda", label)
 
-    # 10. similarity and the CLI, around the main path's force vectors
-    cli_launches = similarity_phase(out, "cuda", label)
+    # 11. the extended features, before phase 10, whose D = 49 library takes
+    # (a)'s rows; (c)'s CLI part runs in phase 10 (c), on its files
+    t_ext = time.perf_counter()
+    ext_rows, ext_launches = extended_phase(
+        batch, {"main": out, "two_kernel": out2, "hybrid": outh},
+        {"main": cfg, "two_kernel": two, "hybrid": hyb}, label)
+    extended_stream_part(long_pcm, long_durs, "cuda", label)
+    del long_pcm
+    songs = list(arrays) + [a[::-1].copy() for a in arrays] + [
+        np.roll(a, a.shape[0] // 3) for a in arrays]
+    scan_phase(songs, durations * 3, cfg, "main", "cuda", MAIN_B, label, runs=1, trace=False,
+               extended=True)
+    del songs
+    log(f"extended (phase 11) took {time.perf_counter() - t_ext:.1f} s, its CLI part aside")
+
+    # 10. similarity and the CLI, around the main path's rows, with (a)'s
+    # extended columns as the D = 49 library's
+    cli_launches = similarity_phase(ext_rows["main"], "cuda", label)
 
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():
@@ -1642,6 +1982,7 @@ def main() -> int:
             e["scan_launches"] = {k: v[e["name"]] for k, v in scan_launches.items()}
             e["stream_launches"] = {k: v[e["name"]] for k, v in stream_launches.items()}
             e["cli_scan_launches"] = cli_launches[e["name"]]
+            e["extended_launches"] = {k: v[e["name"]] for k, v in ext_launches.items()}
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The port's Song API against bliss_tpu's on the same FLAC files: the
 Mapping fields, force, calm_or_loud, analyze, distance and cosine on
-filenames, the legacy ``*_file`` status codes, and the methods and options
-the port does not run yet."""
+filenames, the legacy ``*_file`` status codes, ``Song.extended_analysis``,
+and the methods and options the port does not run yet."""
 
 from unittest import mock
 
@@ -105,11 +105,34 @@ def test_file_functions_return_unexpected_on_a_broken_file(files, fn):
 @pytest.mark.parametrize(
     "method, item",
     [("amplitude_analysis", "M7"), ("frequency_analysis", "M7"),
-     ("envelope_analysis", "M7"), ("extended_analysis", "M8")],
+     ("envelope_analysis", "M7")],
 )
 def test_unported_methods_raise(port_songs, method, item):
     with pytest.raises(NotImplementedError, match=item):
         getattr(port_songs[0], method)()
+
+
+def test_extended_analysis_matches_jax(jax_songs, port_songs):
+    """``Song.extended_analysis`` against bliss_tpu's on the same files, each
+    package under its own default config (bliss_tpu's CPU default is its
+    float64 parity config), within EXTENDED_GATES; bpm counts the beats of
+    the Song's own tempo; the hybrid config within the gates of the main
+    path's."""
+    from bliss_tpu_torch.features.extended import EXTENDED_FEATURE_NAMES, EXTENDED_GATES
+
+    for got_song, ref_song in zip(port_songs, jax_songs):
+        got = got_song.extended_analysis()
+        ref = ref_song.extended_analysis()
+        assert list(got) == list(ref) == list(EXTENDED_FEATURE_NAMES)
+        hyb = got_song.extended_analysis(AnalysisConfig.for_gpu_hybrid(), device="cpu")
+        dur = got_song.duration
+        beats = round((got_song.force_vector.tempo + 30.4) * dur / 4.0)
+        assert got["bpm"] * dur / 60.0 == pytest.approx(beats, rel=1e-6)
+        g, r, h = (np.array(list(x.values()), np.float64) for x in (got, ref, hyb))
+        for name, lo, hi, gate in EXTENDED_GATES:
+            scale = dur / 60.0 if lo == 5 else 1.0
+            assert np.abs(g[lo:hi] - r[lo:hi]).max() * scale <= gate, name
+            assert np.abs(g[lo:hi] - h[lo:hi]).max() * scale <= gate, name
 
 
 def test_mapping_interface():

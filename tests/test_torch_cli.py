@@ -3,7 +3,8 @@
 both packages' ``analyze_library``, the playlist against
 ``bliss_tpu.sim.playlist_order``, radio against ``bliss_tpu.sim.kmeans``,
 and every ``store`` action through both CLIs on copies of one store; the
-options of unported parts, and the default device without a GPU."""
+``--extended`` surfaces of ``analyze``, ``scan`` and ``radio``; the options
+of unported parts, and the default device without a GPU."""
 
 import csv
 import os
@@ -57,8 +58,9 @@ def library(tmp_path_factory):
     with open(out, newline="") as f:
         rows = list(csv.reader(f, delimiter=";"))
     port = pipeline.analyze_library(files, batch_size=6, device="cpu", handle_sigint=False)
+    # extended: one bliss_tpu program gives the core rows and the 45 columns
     ref = jpipeline.analyze_library(files, cfg=JConfig.for_tpu(), batch_size=6,
-                                    long_song_samples=None, handle_sigint=False)
+                                    long_song_samples=None, handle_sigint=False, extended=True)
     return {"root": root, "lib": lib, "files": files, "csv": rows, "port": port, "ref": ref}
 
 
@@ -246,12 +248,9 @@ def test_neighbors_csv_is_nearest_neighbors_all(store_dir, tmp_path):
 
 
 UNPORTED = [
-    (["analyze", "F", "--extended"], "M8"),
     (["analyze", "F", "--filterbank", "reference5"], "M7"),
-    (["scan", "LIB", "--store", "S", "--extended"], "M8"),
     (["scan", "LIB", "--store", "S", "--mesh", "2"], "M10"),
     (["scan", "LIB", "--store", "S", "--filterbank", "reference36"], "M7"),
-    (["radio", "LIB", "--store", "S", "--extended"], "M8"),
     (["radio", "LIB", "--store", "S", "--mesh", "4x2"], "M10"),
     (["playlist", "F", "LIB", "--store", "S", "--mesh", "2"], "M10"),
     (["ml-analyze", "F", "--mesh", "2"], "M10"),
@@ -312,3 +311,106 @@ def test_audio_files_are_collected_as_bliss_tpu_collects_them(library):
     assert cli._collect_audio_files(paths) == jcli._collect_audio_files(paths)
     for name in ("a.flac", "b.mp3", "c.txt", "d.npz", "e.wav", "noext"):
         assert cli.is_audio_filename(name) == jcli.is_audio_filename(name)
+
+
+def _within_extended_gates(got, ref, durations):
+    from bliss_tpu_torch.features.extended import EXTENDED_GATES
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    for name, lo, hi, gate in EXTENDED_GATES:
+        d = np.abs(got[:, lo:hi] - ref[:, lo:hi])
+        if lo == 5:  # bpm, gated in beats
+            d = d * np.asarray(durations, np.float64)[:, None] / 60.0
+        assert d.max() <= gate, (name, d.max())
+
+
+@pytest.fixture(scope="module")
+def ext_scan(library, tmp_path_factory):
+    """The port's CLI ``scan --extended`` of the library into a store of its
+    own, and its CSV."""
+    root = tmp_path_factory.mktemp("torch_cli_ext")
+    out = root / "ext.csv"
+    assert cli.main(["--device", "cpu", "scan", str(library["lib"]), "--batch-size", "6",
+                     "--extended", "--store", str(root / "store"), "-o", str(out)]) == 0
+    with open(out, newline="") as f:
+        rows = list(csv.reader(f, delimiter=";"))
+    return {"store": str(root / "store"), "csv": rows}
+
+
+def test_scan_extended_writes_49_columns_and_rows(library, ext_scan):
+    """``scan --extended``: bliss_tpu's header, the core columns of the plain
+    scan, the extended columns of ``analyze_library(extended=True)`` and
+    within EXTENDED_GATES of bliss_tpu's, and 49-column store entries."""
+    rows = ext_scan["csv"]
+    assert rows[0] == library["csv"][0] + list(JAX_EXTENDED_NAMES)
+    assert [r[:6] for r in rows[1:]] == library["csv"][1:]
+    port = pipeline.analyze_library(library["files"], batch_size=6, device="cpu",
+                                    handle_sigint=False, extended=True)
+    np.testing.assert_array_equal(port.features, library["port"].features)
+    assert port.extended.shape == (len(LENGTHS), 45)
+    assert [r[6:] for r in rows[1:]] == [[f"{v:f}" for v in e] for e in port.extended]
+    durations = [api.Song(f, device="cpu").duration for f in library["files"]]
+    _within_extended_gates(port.extended, library["ref"].extended, durations)
+    store = FeatureStore(ext_scan["store"])
+    assert len(store) == len(LENGTHS) and {v.shape for _, v in store.items()} == {(49,)}
+
+
+def test_analyze_extended_prints_bliss_tpus_lines(library, capsys):
+    """``analyze --extended``: the report, then one ``name: value`` line a
+    feature, the values ``Song.extended_analysis``'s and within
+    EXTENDED_GATES of bliss_tpu's CLI (its float64 parity default)."""
+    f0 = library["files"][0]
+    assert cli.main(["--device", "cpu", "analyze", f0, "--extended"]) == 0
+    port = capsys.readouterr().out.splitlines()
+    assert jcli.main(["analyze", f0, "--extended"]) == 0
+    ref = capsys.readouterr().out.splitlines()
+    assert len(port) == len(ref) == 16 + 45
+    assert [ln.split(":")[0] for ln in port[16:]] == [ln.split(":")[0] for ln in ref[16:]] \
+        == list(EXTENDED_FEATURE_NAMES)
+    song = api.Song(f0, device="cpu")
+    assert port[16:] == [f"{k}: {v:f}" for k, v in song.extended_analysis().items()]
+    got, want = ([[float(ln.split(": ")[1]) for ln in out[16:]]] for out in (port, ref))
+    _within_extended_gates(got, want, [song.duration])
+
+
+def test_radio_extended_clusters_z_scored_rows(library, ext_scan, tmp_path):
+    """``radio --extended`` resumed from the extended store: its lists are
+    ``kmeans`` of the z-scored 49-column rows; and on well-separated rows
+    both CLIs make the same partition, up to the labels."""
+    from bliss_tpu_torch.sim import kmeans
+
+    out = tmp_path / "radio"
+    out.mkdir()
+    with mock.patch.object(pipeline, "iter_decode", _decode_nothing):
+        assert cli.main(["--device", "cpu", "radio", str(library["lib"]), "--clusters", "2",
+                         "--store", ext_scan["store"], "--extended", "--output-dir", str(out)]) == 0
+    rows = np.array([[float(x) for x in r[1:5] + r[6:]] for r in ext_scan["csv"][1:]], np.float32)
+    full = np.concatenate([library["port"].features, np.array(
+        [[float(x) for x in r[6:]] for r in ext_scan["csv"][1:]], np.float32)], axis=1)
+    np.testing.assert_allclose(full, rows, rtol=0, atol=5e-7)
+    z = (full - full.mean(0)) / np.maximum(full.std(0), 1e-6)
+    _, assign = kmeans(z, k=2, iters=50, device="cpu")
+    for c in range(2):
+        got = (out / f"radio-{c:02d}.m3u").read_text().splitlines()[1:]
+        want = [os.path.abspath(library["files"][i]) for i in np.nonzero(assign.numpy() == c)[0]]
+        assert got == want
+
+    (tmp_path / "lib").mkdir()
+    names = [str(tmp_path / "lib" / f"s{i:02d}.flac") for i in range(30)]
+    for n in names:
+        open(n, "wb").close()
+    res = _blob_result(names)
+    rng = np.random.RandomState(9)
+    res.extended = np.concatenate([np.repeat(rng.randn(3, 45) * 5, 10, axis=0)
+                                   + 0.1 * rng.randn(30, 45)]).astype(np.float32)
+    parts = {}
+    for who, main, mod, extra in (("port", cli.main, pipeline, ["--device", "cpu"]),
+                                  ("jax", jcli.main, jpipeline, [])):
+        d = tmp_path / who
+        d.mkdir()
+        with mock.patch.object(mod, "analyze_library", return_value=res):
+            assert main([*extra, "radio", str(tmp_path / "lib"), "--clusters", "3", "--extended",
+                         "--output-dir", str(d)]) == 0
+        parts[who] = {frozenset((d / f"radio-{c:02d}.m3u").read_text().splitlines()[1:])
+                      for c in range(3)}
+    assert parts["port"] == parts["jax"] and all(len(p) == 10 for p in parts["port"])

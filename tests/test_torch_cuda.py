@@ -204,6 +204,37 @@ def test_streaming_on_gpu_matches_cpu(cuda, cfg):
     np.testing.assert_allclose(gpu[1:], cpu[1:], rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("cfg", [AnalysisConfig.for_gpu(), TWO_KERNEL, AnalysisConfig.for_gpu_hybrid()],
+                         ids=["main", "two_kernel", "hybrid"])
+def test_extended_batch_on_gpu_matches_float64(cuda, cfg):
+    """A small extended batch on the card: the core columns those of
+    ``analyze_batch``; the 45 within EXTENDED_GATES of the same function
+    with its per-frame stage in float64 on the card, and of the CPU's rows;
+    bpm · duration / 60 the core's beat count; one prepass and one K1 (or
+    K2 and K3) launch."""
+    from bliss_tpu_torch.features import extended
+    from bliss_tpu_torch.features.analyze import _device_stage_sums, analyze_batch_ext
+
+    songs, durs = _songs()
+    batch = PCMBatch.from_arrays(songs, durs, device=cuda)
+    before = _counters() + (fused_stats.PREPASS_LAUNCHES,)
+    rows = analyze_batch_ext(batch, cfg).cpu().numpy()
+    k1 = (1, 0, 0) if cfg.single_pass else (0, 1, 1)
+    assert _counters() + (fused_stats.PREPASS_LAUNCHES,) == tuple(
+        b + d for b, d in zip(before, k1 + (1,)))
+    np.testing.assert_array_equal(rows[:, :4], analyze_batch(batch, cfg).cpu().numpy())
+    _, _, fa, sums = _device_stage_sums(batch, cfg)
+    f64 = extended.extended_features(batch, cfg, fa=fa, sums=sums, dtype=torch.float64).cpu().numpy()
+    cpu = analyze_batch_ext(PCMBatch.from_arrays(songs, durs, device="cpu"), cfg).numpy()
+    dur = np.asarray(durs, np.float64)
+    beats = np.rint((rows[:, 0].astype(np.float64) + 30.4) * dur / 4.0)
+    np.testing.assert_allclose(rows[:, 9].astype(np.float64) * dur / 60.0, beats, rtol=1e-6)
+    for ref in (f64, cpu[:, 4:]):
+        for name, lo, hi, gate in extended.EXTENDED_GATES:
+            d = np.abs(rows[:, 4 + lo : 4 + hi].astype(np.float64) - ref[:, lo:hi])
+            assert d.max() * (dur.max() / 60.0 if lo == 5 else 1.0) <= gate, name
+
+
 # ---- the measurement kernels A1-A3 (bliss_tpu_torch.ablate) -------------------
 
 

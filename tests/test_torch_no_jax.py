@@ -6,7 +6,8 @@ every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant,
 runs the prepass sums and the stats kernel's CPU twin, writes two FLAC
 files with the port's writer and scans them with the port's
 ``analyze_library`` on the CPU (the native decoder built at first use), and
-streams a song with ``analyze_song_streaming``, and runs the similarity
+streams a song with ``analyze_song_streaming``, computes the extended
+features (``features/extended.py``) batched and streamed, and runs the similarity
 (``kmeans``, ``nearest_neighbors_all``) and the port's CLI (``store
 neighbors`` on a small store)."""
 
@@ -69,6 +70,13 @@ long_song = np.tile(song, 5)  # 150 000 samples: three rows of 2^16
 streamed = analyze_song_streaming(long_song, 3, bliss_tpu_torch.AnalysisConfig.for_gpu(), 1 << 16, device="cpu")
 whole = bliss_tpu_torch.analyze_pcm([long_song], [3], device="cpu")[0]
 assert streamed[0] == whole[0] and np.abs(streamed - whole).max() <= 1e-3, (streamed, whole)
+from bliss_tpu_torch.features import extended
+rows = bliss_tpu_torch.analyze_pcm([long_song, song], [3, 1], device="cpu", extended=True)
+assert rows.shape == (2, 49) and np.isfinite(rows).all(), rows
+assert np.array_equal(rows[:, :4], bliss_tpu_torch.analyze_pcm([long_song, song], [3, 1], device="cpu"))
+ext_streamed = analyze_song_streaming(long_song, 3, bliss_tpu_torch.AnalysisConfig.for_gpu(), 1 << 16, extended=True, device="cpu")
+assert ext_streamed.shape == (49,) and np.abs(ext_streamed[4:] - rows[0, 4:]).max() <= 1e-2, ext_streamed
+assert len(extended.EXTENDED_FEATURE_NAMES) == 45 and extended.mel_filterbank().shape == (257, 40)
 from bliss_tpu_torch import cli
 from bliss_tpu_torch.sim import kmeans, nearest_neighbors_all
 from bliss_tpu_torch.store import FeatureStore

@@ -1,6 +1,7 @@
 """The port's library pipeline against bliss_tpu.pipeline.analyze_library on
 the same synthetic FLAC library: rows, ok flags, errors and stats keys;
-padding invariance; store resume, cancellation and cross-package stores."""
+padding invariance; store resume, cancellation and cross-package stores;
+extended scans."""
 
 import dataclasses
 import threading
@@ -229,14 +230,52 @@ def test_a_long_song_is_logged_and_stays_on_the_bucket_path(scans):
     np.testing.assert_allclose(r.features[5, 1:], ref.features[5, 1:], rtol=0, atol=5e-4)
 
 
-@pytest.mark.parametrize(
-    "kwargs, item",
-    [({"mesh": object()}, "M10"), ({"extended": True}, "M8")],
-    ids=["mesh", "extended"],
-)
+@pytest.mark.parametrize("kwargs, item", [({"mesh": object()}, "M10")], ids=["mesh"])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         pipeline.analyze_library([], device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("name", ["main", "hybrid"])
+def test_an_extended_scan_fills_extended_and_keeps_49_column_entries(scans, tmp_path, name):
+    """``extended=True``: ``ScanResult.extended`` [N, 45], NaN for the
+    broken file; batch rows as ``analyze_batch_ext`` of the same songs in
+    the same bucket, a long song's as ``analyze_song_streaming(...,
+    extended=True)``; the core rows those of the plain scan; 49-column
+    store entries, taken again by an extended rescan and not by a plain one
+    (which analyzes again), as bliss_tpu's pipeline does."""
+    from bliss_tpu_torch.features.analyze import analyze_batch_ext
+
+    files = scans["files"]
+    cfg = AnalysisConfig.for_gpu() if name == "main" else AnalysisConfig.for_gpu_hybrid()
+    store = FeatureStore(str(tmp_path / "store"))
+    r = pipeline.analyze_library(files, cfg=cfg, batch_size=2, device="cpu", store=store,
+                                 handle_sigint=False, long_song_samples=90_000, extended=True)
+    assert r.extended.shape == (len(files), 45) and r.extended.dtype == np.float32
+    assert np.isnan(r.extended[BROKEN_AT]).all() and not r.ok[BROKEN_AT]
+    assert np.isfinite(r.extended[r.ok]).all() and r.stats["streaming"]["count"] == 1
+    plain = pipeline.analyze_library(files, cfg=cfg, batch_size=2, device="cpu",
+                                     handle_sigint=False, long_song_samples=90_000)
+    np.testing.assert_array_equal(r.features, plain.features)
+    d = decode(files[5])
+    row = streaming.analyze_song_streaming(d.samples, d.duration, cfg, extended=True, device="cpu")
+    np.testing.assert_array_equal(r.extended[5], row[4:])
+    pair = [decode(files[i]) for i in (0, 1)]  # scanned together in the 98304 bucket
+    batch = PCMBatch.from_arrays([p.samples for p in pair], [p.duration for p in pair],
+                                 pad_multiple=98304, device="cpu")
+    np.testing.assert_array_equal(r.extended[:2], analyze_batch_ext(batch, cfg).numpy()[:, 4:])
+    assert {v.shape for _, v in FeatureStore(str(tmp_path / "store")).items()} == {(49,)}
+
+    again = pipeline.analyze_library(files, cfg=cfg, batch_size=2, device="cpu", extended=True,
+                                     store=FeatureStore(str(tmp_path / "store")), handle_sigint=False)
+    assert "device_dispatch" not in again.stats  # every row from the store
+    np.testing.assert_array_equal(again.extended, r.extended, strict=True)
+    narrow = pipeline.analyze_library(files, cfg=cfg, batch_size=2, device="cpu",
+                                      store=FeatureStore(str(tmp_path / "store")), handle_sigint=False,
+                                      long_song_samples=90_000)
+    # two batches and the clip's; the long song streams
+    assert narrow.stats["device_dispatch"]["count"] == 3 and narrow.extended is None
+    np.testing.assert_array_equal(narrow.features, plain.features)
 
 
 @pytest.mark.parametrize("entry", ["analyze_library", "_scan"])

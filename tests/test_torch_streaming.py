@@ -3,7 +3,8 @@ against ``bliss_tpu.features.streaming.analyze_song_streaming`` and against
 the port's own whole-shape path, on the CPU, where the kernels' wrappers run
 their plain versions: the vector, the exact integer statistics, the trim
 bounds, the window energies, chunk-size invariance, edge cases of the fold,
-the refusals, and the launch counters the pipeline's threads share."""
+the extended row, the refusals, and the launch counters the pipeline's
+threads share."""
 
 import sys
 import threading
@@ -192,13 +193,44 @@ def test_edges_of_the_fold(kind):
     _same_vector(got, whole, dur, WHOLE_TOL)
 
 
-@pytest.mark.parametrize("case", ["extended", "float64", "chunk_not_a_frame"])
+@pytest.fixture(scope="session")
+def jax_ext_rows(song):
+    samples, dur = song
+    return {name: j_streaming(samples, dur, jcfg, chunk_samples=CH, extended=True)
+            for name, (_, jcfg) in CONFIGS.items()}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_streamed_extended_row_matches_jax_and_the_whole_shape_path(song, jax_ext_rows, port_rows, name):
+    """``extended=True``: [49], the 4 the plain streamed vector, the 45
+    within EXTENDED_GATES of bliss_tpu's streamed row (``chunk_samples``
+    2^16) and of the port's whole-shape ``analyze_batch_ext``; bpm counts
+    the core's beats; 2^17-sample rows give the same row within the gates
+    (the zero crossings at the rows' edges counted once: exactly)."""
+    from bliss_tpu_torch.features.analyze import analyze_batch_ext
+    from bliss_tpu_torch.features.extended import EXTENDED_GATES
+
+    samples, dur = song
+    cfg = CONFIGS[name][0]
+    got = streaming.analyze_song_streaming(samples, dur, cfg, CH, extended=True, device="cpu")
+    assert got.shape == (49,) and got.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_array_equal(got[:4], port_rows[name])
+    assert got[4 + 5] * dur / 60.0 == pytest.approx(_beats(got, dur), rel=1e-6)
+    whole = analyze_batch_ext(PCMBatch.from_arrays([samples], [dur], device="cpu"), cfg).numpy()[0]
+    wide = streaming.analyze_song_streaming(samples, dur, cfg, 2 * CH, extended=True, device="cpu")
+    assert wide[4] == got[4] == whole[4]  # zero-crossing rate: the same count
+    for ref, tol in ((jax_ext_rows[name], JAX_TOL), (whole, WHOLE_TOL), (wide, WHOLE_TOL)):
+        _same_vector(got[:4], ref[:4], dur, tol)
+        for gate_name, lo, hi, gate in EXTENDED_GATES:
+            d = np.abs(got[4 + lo : 4 + hi].astype(np.float64) - ref[4 + lo : 4 + hi])
+            assert d.max() * (dur / 60.0 if lo == 5 else 1.0) <= gate, gate_name
+
+
+@pytest.mark.parametrize("case", ["float64", "chunk_not_a_frame"])
 def test_refusals(song, case):
     samples, dur = song
     cfg, kw = AnalysisConfig.for_gpu(), {}
-    if case == "extended":
-        kw, err, match = {"extended": True}, NotImplementedError, "M8"
-    elif case == "float64":
+    if case == "float64":
         cfg, err, match = AnalysisConfig(dtype="float64", fused_kernel=True, tempo_finish="host"), NotImplementedError, "M7"
     else:
         kw, err, match = {"chunk_samples": CH + 512}, ValueError, "multiple of 1024"
@@ -207,8 +239,9 @@ def test_refusals(song, case):
 
 
 def test_the_stage_waits_for_no_device_value(song):
-    """No step before the final copy reads a value back: every call that
-    would wait for the device raises here."""
+    """No step before the final copy reads a value back, with or without
+    the extended sums: every call that would wait for the device raises
+    here."""
     samples, dur = song
     banned = ("item", "cpu", "numpy", "tolist", "__bool__", "__int__", "__float__", "__index__")
     patches = [mock.patch.object(torch.Tensor, name, side_effect=AssertionError(name)) for name in banned]
@@ -216,10 +249,12 @@ def test_the_stage_waits_for_no_device_value(song):
         p.start()
     try:
         st = streaming.stream_stage(samples, dur, AnalysisConfig.for_gpu(), CH, CPU)
+        ste = streaming.stream_stage(samples, dur, AnalysisConfig.for_gpu(), CH, CPU, extended=True)
     finally:
         for p in patches:
             p.stop()
-    assert st.energies.dtype == torch.float64
+    assert st.energies.dtype == torch.float64 and st.ext is None
+    assert ste.ext.spec.shape == (1, 257) and ste.ext.spec.dtype == torch.float64
 
 
 def test_streaming_defaults_to_the_gpu(song):

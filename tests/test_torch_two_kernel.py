@@ -37,6 +37,7 @@ from bliss_tpu_torch.features.analyze import (
     analyze_batch,
     analyze_batch_hybrid,
 )
+from bliss_tpu_torch.features.extended import extended_features
 from bliss_tpu_torch.features.tempo import envelope_finish_host
 from bliss_tpu_torch.features.types import PCMBatch
 from bliss_tpu_torch.kernels import fused_all, fused_stats, stft
@@ -412,12 +413,18 @@ def test_packed_stage_is_one_float64_array(batches):
     packed = tanalyze._device_stage_packed(tb, cfg)
     B, L = tb.samples.shape
     assert packed.dtype == torch.float64 and packed.shape == (B, 2 + L // 256)
-    amp, freq, fa = tanalyze._unpack_stage(packed.numpy(), cfg, L)
+    amp, freq, fa, ext = tanalyze._unpack_stage(packed.numpy(), cfg, L)
     a2, f2, fa2 = tanalyze._device_stage(tb, cfg)
     assert np.array_equal(amp, a2.numpy()) and np.array_equal(freq, f2.numpy())
-    assert np.array_equal(fa, fa2.numpy())
-    with pytest.raises(NotImplementedError, match="M8"):
-        tanalyze._device_stage_packed(tb, cfg, extended=True)
+    assert np.array_equal(fa, fa2.numpy()) and ext is None
+    # extended: the 45 columns after the energies, the beat columns left
+    # zero for the host finish, the rest the extended features' own
+    wide = tanalyze._device_stage_packed(tb, cfg, extended=True)
+    assert wide.dtype == torch.float64 and wide.shape == (B, 2 + L // 256 + 45)
+    assert torch.equal(wide[:, : packed.shape[1]], packed)
+    *_, ext = tanalyze._unpack_stage(wide.numpy(), cfg, L, extended=True)
+    want = extended_features(tb, cfg, beat_aux="skip").numpy()
+    assert np.array_equal(ext, want) and not ext[:, 5:7].any()
 
 
 @pytest.mark.parametrize("config", ["two_kernel", "hybrid"])
