@@ -12,7 +12,10 @@ legacy status-code behavior for drop-in use.
 
 ``analyze_pcm`` analyzes decoded PCM and ``analyze_features`` a PCM batch;
 both, and ``Song.extended_analysis``, give the 45 extended features
-(``features/extended.py``) when asked.
+(``features/extended.py``) when asked. ``Song.amplitude_analysis``,
+``frequency_analysis`` and ``envelope_analysis`` run one analyzer of the
+XLA-path stage (``features/amplitude.py``, ``frequency.py``,
+``tempo.envelope_scores``) under any config, as ``bliss_tpu``'s do.
 Every entry point that analyzes runs on ``device``: the GPU unless the
 caller asks for the CPU (``device="cpu"``); it raises RuntimeError when no
 GPU is present. The main path's config is ``AnalysisConfig.for_gpu()``;
@@ -70,12 +73,6 @@ class ForceVector:
 
     def as_dict(self) -> dict[str, float]:
         return dataclasses.asdict(self)
-
-
-def _unported(method: str, item: str, what: str):
-    raise NotImplementedError(
-        f"Song.{method} runs {what}, which is ROADMAP item {item} of the port"
-    )
 
 
 class Song(Mapping):
@@ -204,7 +201,8 @@ class Song(Mapping):
         returns the LOUD/CALM/UNKNOWN class (reference: src/analyze.c:33-80).
 
         A song longer than ``LONG_SONG_SAMPLES`` is streamed
-        (``features/streaming.py``), as the pipeline does."""
+        (``features/streaming.py``) where the config streams
+        (``streaming.streaming_supports``), as the pipeline does."""
         if filename is not None:
             self.filename = filename
             self.sample_array = None
@@ -225,11 +223,29 @@ class Song(Mapping):
         self.calm_or_loud = int(cls[0])
         return self.calm_or_loud
 
-    def amplitude_analysis(self, cfg: AnalysisConfig | None = None) -> float:
-        _unported("amplitude_analysis", "M7", "the XLA-path amplitude score")
+    def amplitude_analysis(self, cfg: AnalysisConfig | None = None, *, device=None) -> float:
+        """The amplitude score alone, from ``features/amplitude.py`` in
+        ``cfg.amplitude_mode`` on ``device`` (default: the Song's); sets
+        ``force_vector.amplitude``."""
+        from bliss_tpu_torch.features.amplitude import amplitude_scores
 
-    def frequency_analysis(self, cfg: AnalysisConfig | None = None) -> float:
-        _unported("frequency_analysis", "M7", "the XLA-path frequency score")
+        cfg = cfg or default_config()
+        batch = self._batch(cfg, resolve_device(device or self.device))
+        v = float(amplitude_scores(batch, cfg)[0])
+        self.force_vector.amplitude = v
+        return v
+
+    def frequency_analysis(self, cfg: AnalysisConfig | None = None, *, device=None) -> float:
+        """The frequency score alone, from ``features/frequency.py`` in
+        ``cfg.spectrum_mode`` on ``device`` (default: the Song's); sets
+        ``force_vector.frequency``."""
+        from bliss_tpu_torch.features.frequency import frequency_scores
+
+        cfg = cfg or default_config()
+        batch = self._batch(cfg, resolve_device(device or self.device))
+        v = float(frequency_scores(batch, cfg)[0])
+        self.force_vector.frequency = v
+        return v
 
     def extended_analysis(
         self, cfg: AnalysisConfig | None = None, *, device=None
@@ -239,8 +255,9 @@ class Song(Mapping):
         chroma) as a name -> value dict, analyzed on ``device`` (default:
         the Song's). The band energies and the beat aux come from the
         config's own device stage and envelope finish (``bliss_tpu`` takes
-        its band energies from the XLA path, ROADMAP M7 here); a song longer
-        than ``LONG_SONG_SAMPLES`` is streamed, as ``analyze`` does."""
+        its band energies from its XLA path whatever the config); a song
+        longer than ``LONG_SONG_SAMPLES`` is streamed where the config
+        streams, as ``analyze`` does."""
         device = resolve_device(device or self.device)
         cfg = cfg or default_config()
         if self.sample_array is None:
@@ -254,8 +271,21 @@ class Song(Mapping):
             row = analyze_features(self._batch(cfg, device), cfg, extended=True)[0]
         return dict(zip(EXTENDED_FEATURE_NAMES, map(float, row[4:])))
 
-    def envelope_analysis(self, cfg: AnalysisConfig | None = None) -> tuple[float, float]:
-        _unported("envelope_analysis", "M7", "the XLA-path tempo and attack scores")
+    def envelope_analysis(
+        self, cfg: AnalysisConfig | None = None, *, device=None
+    ) -> tuple[float, float]:
+        """(tempo, attack) alone, from ``tempo.envelope_scores`` (the
+        XLA-path energies in ``cfg.tempo_energy_mode``, then the config's
+        finish) on ``device`` (default: the Song's); sets
+        ``force_vector.tempo`` and ``.attack``."""
+        from bliss_tpu_torch.features.tempo import envelope_scores
+
+        cfg = cfg or default_config()
+        batch = self._batch(cfg, resolve_device(device or self.device))
+        t, a = (float(x[0]) for x in envelope_scores(batch, cfg))
+        self.force_vector.tempo = t
+        self.force_vector.attack = a
+        return t, a
 
 
 def analyze_features(

@@ -17,11 +17,12 @@ Every command that analyzes or compares songs runs on ``--device`` (default
 ``cuda``, env fallback ``BLISS_TPU_TORCH_DEVICE``); without a GPU such a
 command fails unless it is given ``--device cpu``, and never falls back to
 the CPU. ``--extended`` adds the 45 extended features to ``analyze``'s
-report, ``scan``'s CSV and store rows, and ``radio``'s clustering. The
-options of parts the port does not run yet (``--mesh``, ROADMAP M10;
-``--filterbank reference5|reference36`` and any config ``check_supported``
-refuses, M7) exit with status 2 before any decode or store write. ``gui``, ``doctor``, ``serve`` and ``call`` are
-the rest of ROADMAP M11.
+report, ``scan``'s CSV and store rows, and ``radio``'s clustering.
+``--bands`` and ``--filterbank firwin|reference5|reference36`` select the
+tempo filterbank. ``--mesh`` (ROADMAP M10) and a config that
+``check_supported`` refuses exit with status 2 before any decode or store
+write. ``gui``, ``doctor``, ``serve`` and ``call`` are the rest of ROADMAP
+M11.
 
 Run: python -m bliss_tpu_torch.cli <command> ...
 """
@@ -92,15 +93,13 @@ def _band_config(args):
 
 def _unported(args) -> str | None:
     """Why ``args`` asks for a part the port does not run yet (naming its
-    ROADMAP item), or None."""
+    ROADMAP item) or a config ``check_supported`` refuses, or None."""
     if getattr(args, "mesh", None):
         return "--mesh (analysis over a device mesh) is ROADMAP item M10 of the port"
-    if getattr(args, "filterbank", None) in ("reference5", "reference36"):
-        return f"--filterbank {args.filterbank} is ROADMAP item M7 of the port"
     if hasattr(args, "filterbank"):
         try:
             check_supported(_band_config(args))
-        except NotImplementedError as e:
+        except ValueError as e:
             return str(e)
     return None
 
@@ -114,8 +113,8 @@ def _add_band_opts(parser) -> None:
     parser.add_argument(
         "--filterbank", default=None,
         choices=["firwin", "reference5", "reference36"],
-        help="filterbank design; reference5/reference36 (the reference's own"
-        " coefficient tables) are ROADMAP item M7 of the port",
+        help="filterbank design; reference5/reference36 are the reference's own"
+        " coefficient tables",
     )
 
 

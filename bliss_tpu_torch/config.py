@@ -3,8 +3,9 @@
 The same frozen dataclass as ``bliss_tpu/config.py`` (same fields, defaults
 and validation), so one set of field values selects the same modes in both
 packages. ``for_gpu()`` is the port's main path and carries exactly
-``for_tpu()``'s values. ``check_supported`` names the ROADMAP item that will
-bring each configuration this package does not run yet.
+``for_tpu()``'s values. ``check_supported`` refuses a mode name neither
+package knows, and ``uses_kernels`` routes a config to the CUDA kernels or
+to the XLA-path stage.
 """
 
 from __future__ import annotations
@@ -112,6 +113,19 @@ class AnalysisConfig:
         return getattr(torch, self.dtype)
 
     @staticmethod
+    def for_parity() -> "AnalysisConfig":
+        """Strict parity with the reference's golden values, with exactly
+        the field values of the JAX package's ``for_parity()``: float64,
+        the 301 float32 smoothing passes, the float32 accumulation orders,
+        on the XLA-path stage."""
+        return AnalysisConfig(
+            dtype="float64",
+            amplitude_mode="iterative",
+            tempo_energy_mode="fft_strict",
+            strict_accumulation=True,
+        )
+
+    @staticmethod
     def for_gpu() -> "AnalysisConfig":
         """The port's main path, with exactly the field values of the JAX
         package's ``for_tpu()``: the single-pass fused kernel (CUDA here)
@@ -138,24 +152,35 @@ class AnalysisConfig:
         )
 
 
+MODES = {
+    "dtype": ("float32", "float64"),
+    "amplitude_mode": ("table", "poly", "iterative"),
+    "spectrum_mode": ("matmul", "fft"),
+    "tempo_energy_mode": ("parseval", "parseval_framed", "fft", "fft_strict"),
+    "iir_mode": ("blocked", "scan"),
+    "fused_conv": ("split", "exact"),
+}
+
+
+def uses_kernels(cfg: AnalysisConfig) -> bool:
+    """Whether a config takes the CUDA kernels' device stage (K1, or K2 and
+    K3): the fused kernel, float32 and at most 129 taps, as ``bliss_tpu``'s
+    ``_use_fused`` routes (``bliss_tpu/features/analyze.py:93-103``). Every
+    other config takes the XLA-path stage (``features/amplitude.py``,
+    ``frequency.py`` and ``tempo.band_energies``). ``bliss_tpu`` also needs
+    L >= 65536 for its TPU kernel's tiles; the port's kernels take any L
+    that is a multiple of 1024, so the length does not route here."""
+    return cfg.fused_kernel and cfg.dtype == "float32" and cfg.band_taps <= 129
+
+
 def check_supported(cfg: AnalysisConfig) -> None:
-    """Raise NotImplementedError for a configuration the port does not run
-    yet, naming the ROADMAP item that brings it."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r} (the float64 parity config) is ROADMAP "
-            "item M7; the port runs float32"
-        )
-    if not cfg.fused_kernel:
-        raise NotImplementedError(
-            "fused_kernel=False (the XLA-path modes) is ROADMAP item M7"
-        )
-    if cfg.tempo_finish == "device":
-        raise NotImplementedError(
-            "tempo_finish='device' (the working-dtype finish) is ROADMAP item "
-            "M7; the port runs 'device_exact' and 'host'"
-        )
-    if cfg.band_taps > 129:
-        raise NotImplementedError(
-            "band_taps > 129 exceeds the fused kernel's history (ROADMAP M7)"
-        )
+    """Raise ValueError for a mode name ``bliss_tpu`` does not know either
+    (it raises when it meets one at analysis time; the port raises before
+    any decode). Every single-device config ``bliss_tpu`` runs is run here:
+    the mesh is ROADMAP item M10, and the streamed form of an XLA-path
+    config is M7b (``features/streaming.analyze_song_streaming``)."""
+    for field, names in MODES.items():
+        if getattr(cfg, field) not in names:
+            raise ValueError(
+                f"unknown {field} {getattr(cfg, field)!r}: use one of {names}"
+            )

@@ -2,7 +2,8 @@
 
 This system has no weights: its state is the constant tables and the
 analysis config. ``tables_from_numpy`` turns a dict of NumPy tables into the
-device-resident tensors the kernel and the plain versions read;
+device-resident tensors the kernels, their plain versions and the XLA-path
+stage (``features/amplitude.py``, ``frequency.py``, ``tempo.py``) read;
 ``config_from_reference`` rebuilds an ``AnalysisConfig`` from the JAX
 package's config as ``dataclasses.asdict`` gives it. ``extended_tables``
 puts the extended features' tables (``features/extended.py``) on a device. The tests feed both with
@@ -20,21 +21,25 @@ import torch
 from bliss_tpu_torch import tables
 from bliss_tpu_torch.config import AnalysisConfig
 
-# The tempo path's tables stay float64 (FIR, warm-up correction and the
-# IIR block operators); the amplitude and spectrum tables are float32.
+# The kernels' tempo tables stay float64 (FIR, warm-up correction and the
+# IIR block operators); their amplitude and spectrum tables are float32.
+# The XLA-path stage takes every table in its config's dtype instead.
 FLOAT64_TABLES = ("fir", "warm", "iir_L", "iir_Z", "iir_M", "iir_N")
 
 
 def reference_arrays(
     nb_bands: int, band_taps: int, filterbank: str, iir_block: int = 256
 ) -> dict[str, np.ndarray]:
-    """The NumPy tables the main path reads, keyed as ``tables_from_numpy``
-    expects."""
+    """The NumPy tables the kernel path and the XLA-path stage read, keyed as
+    ``tables_from_numpy`` expects: the XLA path's amplitude weight table
+    (``amp_table``), its zero-Nyquist real DFT (``rdft_re``, ``rdft_im``)
+    and the Parseval sign pattern (``alt``) besides the kernels' tables."""
     # stft imports this module
     from bliss_tpu_torch.kernels.stft import fft_twiddles, hann_dft_table
 
     _, _, c_pos = tables.amplitude_cdf_poly()
     L, Z, M, N = tables.iir_block_operator(iir_block)
+    rdft_re, rdft_im = tables.rdft_matrices(zero_nyquist=True)
     return {
         "cheb": c_pos,
         "fir": tables.bandpass_filterbank(nb_bands, band_taps, filterbank),
@@ -46,35 +51,42 @@ def reference_arrays(
         "iir_Z": Z,
         "iir_M": M,
         "iir_N": N,
+        "amp_table": tables.amplitude_weight_table(),
+        "rdft_re": rdft_re,
+        "rdft_im": rdft_im,
+        "alt": tables.parseval_alt_sign(),
     }
 
 
 def tables_from_numpy(
-    arrays: dict[str, np.ndarray], device
+    arrays: dict[str, np.ndarray], device, dtype: torch.dtype | None = None
 ) -> dict[str, torch.Tensor]:
-    """Contiguous device tensors of ``arrays``: float64 for the names in
-    ``FLOAT64_TABLES``, float32 for everything else."""
+    """Contiguous device tensors of ``arrays``: all in ``dtype`` when it is
+    given (the XLA-path stage's working dtype); else float64 for the names
+    in ``FLOAT64_TABLES`` and float32 for everything else (the kernels')."""
     out = {}
     for name, a in arrays.items():
-        dtype = torch.float64 if name in FLOAT64_TABLES else torch.float32
+        want = dtype or (torch.float64 if name in FLOAT64_TABLES else torch.float32)
         out[name] = torch.as_tensor(
-            np.ascontiguousarray(a), dtype=dtype
+            np.ascontiguousarray(a), dtype=want
         ).to(device).contiguous()
     return out
 
 
-@functools.lru_cache(maxsize=16)
-def _cached_tables(nb_bands, band_taps, filterbank, iir_block, device):
+@functools.lru_cache(maxsize=32)
+def _cached_tables(nb_bands, band_taps, filterbank, iir_block, device, dtype):
     arrays = reference_arrays(nb_bands, band_taps, filterbank, iir_block)
-    return tables_from_numpy(arrays, device)
+    return tables_from_numpy(arrays, device, dtype)
 
 
 def device_tables(
-    nb_bands: int, band_taps: int, filterbank: str, device, iir_block: int = 256
+    nb_bands: int, band_taps: int, filterbank: str, device, iir_block: int = 256,
+    dtype: torch.dtype | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Per-device cache of the main path's tables."""
+    """Per-device cache of the tables: the kernels' dtypes by default, every
+    table in ``dtype`` when it is given."""
     return _cached_tables(
-        nb_bands, band_taps, filterbank, iir_block, torch.device(device)
+        nb_bands, band_taps, filterbank, iir_block, torch.device(device), dtype
     )
 
 

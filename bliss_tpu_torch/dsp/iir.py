@@ -1,18 +1,48 @@
-"""The Butterworth low-pass as a blocked linear recurrence.
+"""The Butterworth low-pass (counterpart of ``bliss_tpu/dsp/iir.py``).
 
 The reference's filter is a sequential per-sample recurrence
-(reference: src/tempo_atk_sort.c:200-218). It is linear, so a block of T
-steps is a dense affine map of (block inputs, incoming state), given by the
-block operators of ``tables.iir_block_operator``. The in-block products of
-every block run as two batched matmuls; only the 6-wide state is carried
-block to block, in a Python loop. Zero initial state, as the reference
-(registry memset at src/tempo_atk_sort.c:193-197).
+(reference: src/tempo_atk_sort.c:200-218).
+
+- ``lfilter_blocked``: the recurrence is linear, so a block of T steps is
+  a dense affine map of (block inputs, incoming state), given by the block
+  operators of ``tables.iir_block_operator``. The in-block products of
+  every block run as two batched matmuls; only the 6-wide state is carried
+  block to block, in a Python loop.
+- ``lfilter_scan``: the literal direct-form-II-transposed recurrence, one
+  step a sample (``iir_mode="scan"``, a parity mode: a launch or a few a
+  step on the GPU).
+
+Both start from zero state, as the reference (registry memset at
+src/tempo_atk_sort.c:193-197). On the GPU their float32 matmuls need TF32
+off (``torch.backends.cuda.matmul.allow_tf32 = False``, the default).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def lfilter_scan(b: np.ndarray, a: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """Direct-form-II-transposed lfilter of ``x`` [..., T] along its last
+    axis, zero initial state, in x's dtype: a Python loop over the T steps,
+    each vectorized over the leading axes (rows and bands)."""
+    order = len(a) - 1
+    bt = torch.as_tensor(np.asarray(b, np.float64), dtype=x.dtype, device=x.device)
+    at = torch.as_tensor(np.asarray(a, np.float64), dtype=x.dtype, device=x.device)
+    b0, b_rest, a_rest = bt[0], bt[1:], at[1:]
+    # z[..., k] carries state k; each step shifts it down one slot, so z
+    # keeps one zero slot past the last state
+    z = x.new_zeros(*x.shape[:-1], order + 1)
+    y = torch.empty_like(x)
+    for t in range(x.shape[-1]):
+        u = x[..., t]
+        yt = b0 * u + z[..., 0]
+        y[..., t] = yt
+        # z'[k-1] = b[k] u + z[k] - a[k] y, k = 1..order (z[order] = 0)
+        z[..., :order] = b_rest * u[..., None] + z[..., 1:] - a_rest * yt[..., None]
+    return y
 
 
 def lfilter_blocked(x: torch.Tensor, ops) -> torch.Tensor:

@@ -1,14 +1,18 @@
 """Batched analysis: PCM batch -> [B, 4] force vectors (counterpart of
 ``bliss_tpu/features/analyze.py``).
 
-The device stage gives the amplitude integral, the tempo window energies
-and the summed power spectrum, either in one pass (``single_pass=True``,
-the main path: kernel K1 of ``kernels/fused_all.py``) or in two (the
-sample-stats kernel K2 of ``kernels/fused_stats.py`` and the spectrum
-kernel K3 of ``kernels/stft.py``). The frequency score comes from the
-spectrum and the tempo/attack scores from a float64 envelope finish: on the
-device (``tempo_finish="device_exact"``) or on the host
-(``tempo_finish="host"``, ``analyze_batch_hybrid``). ``analyze_batch_ext``
+The device stage gives the amplitude score, the frequency score and the
+tempo window energies. A config that takes the kernels (``config.
+uses_kernels``: the fused kernel, float32, at most 129 taps, as
+``bliss_tpu``'s ``_use_fused`` routes) computes them in one pass
+(``single_pass=True``, the main path: kernel K1 of ``kernels/fused_all.py``)
+or in two (the sample-stats kernel K2 of ``kernels/fused_stats.py`` and the
+spectrum kernel K3 of ``kernels/stft.py``); every other config takes the
+XLA-path stage, PyTorch on the device (``features/amplitude.py``,
+``features/frequency.py``, ``tempo.band_energies``). The tempo/attack
+scores come from the envelope finish: on the device, in float64
+(``tempo_finish="device_exact"``) or in the config's dtype (``"device"``),
+or on the host in float64 (``"host"``, ``analyze_batch_hybrid``). ``analyze_batch_ext``
 and the ``extended`` option of the hybrid functions add the 45 extended
 columns (``features/extended.py``) after the 4, from the same device stage
 and the same envelope finish.
@@ -21,9 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from bliss_tpu_torch import constants as C
-from bliss_tpu_torch.config import AnalysisConfig, check_supported
+from bliss_tpu_torch.config import AnalysisConfig, check_supported, uses_kernels
+from bliss_tpu_torch.features.amplitude import amplitude_scores
 from bliss_tpu_torch.features.extended import EXTENDED_FEATURE_NAMES, extended_features
+from bliss_tpu_torch.features.frequency import frequency_scores
 from bliss_tpu_torch.features.tempo import (
+    band_energies,
     beat_cols_from_host_aux,
     envelope_finish_device,
     envelope_finish_host,
@@ -37,8 +44,8 @@ def analyze_batch(batch: PCMBatch, cfg: AnalysisConfig) -> torch.Tensor:
     """[B, 4] float32 force vectors on the batch's device, ordered (tempo,
     amplitude, frequency, attack) like the reference force_vector_s
     (include/bliss.h:26-31). A ``tempo_finish="host"`` config finishes on
-    the host through ``analyze_batch_hybrid``. Raises NotImplementedError
-    for a config the port does not run yet."""
+    the host through ``analyze_batch_hybrid``. Raises ValueError for an
+    unknown mode name."""
     check_supported(cfg)
     if cfg.tempo_finish == "host":
         return analyze_batch_hybrid(batch, cfg).to(batch.samples.device)
@@ -64,20 +71,25 @@ def analyze_batch_ext(batch: PCMBatch, cfg: AnalysisConfig) -> torch.Tensor:
         fa, batch.n_samples, batch.durations, cfg, return_aux=True
     )
     core = torch.stack([tempo, amplitude, frequency, attack], dim=1)
-    ext = extended_features(batch, cfg, fa=fa, beat_aux=aux, sums=sums)
+    ext = extended_features(batch, cfg, fa=fa, beat_aux=aux, sums=sums, dtype=cfg.torch_dtype)
     return torch.cat([core, ext], dim=1)
 
 
 def _device_stage(batch: PCMBatch, cfg: AnalysisConfig):
-    """(amplitude [B], frequency [B], fa [B, NB, NBF] float64) on the
-    batch's device, through K1 or through K2 and K3."""
+    """(amplitude [B], frequency [B], fa [B, NB, NBF]) on the batch's
+    device: through K1, through K2 and K3 (fa float64), or through the
+    XLA-path stage (fa in the config's dtype)."""
     return _device_stage_sums(batch, cfg)[:3]
 
 
 def _device_stage_sums(batch: PCMBatch, cfg: AnalysisConfig):
     """``_device_stage``'s outputs and the prepass's exact ``(sum s,
-    sum s^2)``, which the extended loudness reads."""
+    sum s^2)``, which the tempo normalization and the extended loudness
+    read."""
     sums = fused_stats.prepass_sums(batch.samples, batch.n_samples)
+    if not uses_kernels(cfg):
+        return (amplitude_scores(batch, cfg), frequency_scores(batch, cfg),
+                band_energies(batch, cfg, sums), sums)
     if cfg.single_pass:
         return (*_single_pass_stage(batch, cfg, sums), sums)
     amplitude, fa = _fused_amp_and_energies(batch, cfg, sums)
@@ -146,7 +158,8 @@ def _device_stage_packed(
     cols = [amplitude[:, None], frequency[:, None], fa.reshape(B, NB * NBF)]
     if extended:
         skip = "skip" if cfg.tempo_finish == "host" else None
-        cols.append(extended_features(batch, cfg, fa=fa, beat_aux=skip, sums=sums))
+        cols.append(extended_features(batch, cfg, fa=fa, beat_aux=skip, sums=sums,
+                                      dtype=cfg.torch_dtype))
     return torch.cat([c.to(torch.float64) for c in cols], dim=1)
 
 

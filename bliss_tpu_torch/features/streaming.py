@@ -64,7 +64,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bliss_tpu_torch.config import AnalysisConfig, check_supported
+from bliss_tpu_torch.config import AnalysisConfig, check_supported, uses_kernels
 from bliss_tpu_torch.features.extended import EXTENDED_FEATURE_NAMES, Partials, finish, partials
 from bliss_tpu_torch.features.analyze import _amplitude_score, _mask_energies
 from bliss_tpu_torch.features.tempo import (
@@ -86,11 +86,12 @@ GROUP_SAMPLES = 1 << 26
 
 
 def streaming_supports(cfg: AnalysisConfig) -> bool:
-    """Whether a config's semantics stream chunk by chunk: every mode does
-    (``bliss_tpu/features/streaming.py:57-69``), so this is True; it stays
-    the pipeline's routing hook. The port refuses the configs it does not
-    run at all (``check_supported``) in ``analyze_song_streaming``."""
-    return True
+    """Whether the port streams a config's long songs: those that take the
+    kernels (``config.uses_kernels``). The streamed form of the XLA-path
+    stage is ROADMAP item M7b, so such a config's long songs go whole-shape
+    through the buckets, ``bliss_tpu``'s ``long_song_samples=None``
+    semantics."""
+    return uses_kernels(cfg)
 
 
 class Streamed(NamedTuple):
@@ -199,8 +200,14 @@ def analyze_song_streaming(
     ``chunk_samples``, a multiple of 1024; with ``extended``, [4 + 45], the
     extended features after the 4, their beat columns from the same
     envelope finish as the tempo. Raises NotImplementedError for a config
-    the port does not run."""
+    that takes the XLA-path stage (``streaming_supports``)."""
     check_supported(cfg)
+    if not streaming_supports(cfg):
+        raise NotImplementedError(
+            "streaming an XLA-path config (one that does not take the CUDA "
+            "kernels: not fused_kernel, float64, or band_taps > 129) is ROADMAP "
+            "item M7b; analyze the song whole (analyze_features)"
+        )
     if chunk_samples <= 0 or chunk_samples % stft.FRAME:
         raise ValueError("chunk_samples must be a multiple of 1024")
     st = stream_stage(samples, duration, cfg, chunk_samples, resolve_device(device), extended)

@@ -1,21 +1,33 @@
-"""Tempo + attack envelope finish (counterpart of
+"""Tempo + attack envelope analyzer (counterpart of
 ``bliss_tpu/features/tempo.py``).
 
-From the per-band window energies fa [B, NB, NBF]: log-compress (mu=100),
-upsample x2 with zero stuffing, 6th-order Butterworth low-pass,
+The XLA-path stage, ``band_energies`` (the configs that do not take the
+CUDA kernels, and ``Song.envelope_analysis``): the interleaved s16 stream
+normalized by its integer mean and variance (the reference divides by the
+variance, not the std), 512-sample windows at hop 256, per window a causal
+FIR with zero state at its start, then the window's summed power spectrum
+(reference: src/tempo_atk_sort.c:42-152), in ``tempo_energy_mode``:
+"parseval" (no window tensor: the global convolution, per-block sums and
+the warm-up corrections of ``tables.fir_warmup_correction``),
+"parseval_framed" (the explicit windows), "fft" and "fft_strict" (the
+literal spectrum, the latter summed in the reference's float32 order).
+
+The finish, from the per-band window energies fa [B, NB, NBF]: log-compress
+(mu=100), upsample x2 with zero stuffing, 6th-order Butterworth low-pass,
 half-wave-rectified differentiation, weighted envelope; attack = sum of the
 envelope; two width-19 rectangular smoothings with the reference's edge
 behavior, epsilon-peak count; tempo = 4*beats/duration - 30.4
 (reference: src/tempo_atk_sort.c:163-284).
 
-The reference computes this chain in C ``double`` and its eps=1e-6 peak
-compare needs ~2^-27 relative precision, so it runs in float64 in both of
-the port's finishes: ``envelope_finish_device``, on the tensor's device
-(the "device_exact" finish), and ``envelope_finish_host``, NumPy/SciPy on
-the host (the "host" finish of the hybrid config), stage for stage alike.
-The JAX package's double-single emulation (``tempo_exact.py``,
-``dsp/ddmath.py``) exists only because the TPU lacks float64 and has no
-counterpart here.
+The reference computes that chain in C ``double`` and its eps=1e-6 peak
+compare needs ~2^-27 relative precision, so the beat-exact finishes run it
+in float64: ``envelope_finish_device`` on the tensor's device
+(``tempo_finish="device_exact"``) and ``envelope_finish_host``, NumPy/SciPy
+on the host (``"host"``), stage for stage alike. ``tempo_finish="device"``
+runs the same device chain in the config's dtype with ``cfg.iir_mode``
+(float32 may flip epsilon-marginal beats, as in the JAX package). The JAX
+package's double-single emulation (``tempo_exact.py``, ``dsp/ddmath.py``)
+exists only because the TPU lacks float64 and has no counterpart here.
 
 The extended features' bpm and beat_loudness come from the same detection:
 ``beat_metrics`` from the device finish's ``return_aux``,
@@ -34,27 +46,204 @@ import torch
 import torch.nn.functional as F
 
 from bliss_tpu_torch import constants as C
+from bliss_tpu_torch import tables
 from bliss_tpu_torch.config import AnalysisConfig
 from bliss_tpu_torch.convert import device_tables
 from bliss_tpu_torch.dsp.boxfilter import box_sum_same
-from bliss_tpu_torch.dsp.iir import lfilter_blocked
+from bliss_tpu_torch.dsp.framing import frame_signal
+from bliss_tpu_torch.dsp.iir import lfilter_blocked, lfilter_scan
+from bliss_tpu_torch.features.types import PCMBatch, row_blocks
+from bliss_tpu_torch.kernels import fused_stats as fs
+
+
+def _normalize_signal(s, n, sums, dtype):
+    """The zero-mean, divided-by-variance rows of ``s`` int16 [b, L] in
+    ``dtype``, zero past each row's ``n`` (reference :101-114), from the
+    prepass's exact int64 sums: the C int32-wrapping mean and the exact
+    integer variance (``fused_stats.moments``; the JAX package's float32
+    configs take a truncated float32 sum instead, F4)."""
+    mean, var = fs.moments(*sums, n)
+    inv = 1.0 / (1 << 15)
+    mean_d = mean.to(dtype) * inv
+    var_d = var.to(dtype) * inv * inv
+    norm = (s.to(dtype) * inv - mean_d[:, None]) / var_d[:, None]
+    valid = torch.arange(s.shape[1], device=s.device)[None, :] < n[:, None]
+    return torch.where(valid, norm, torch.zeros_like(norm))
+
+
+def _fir(x, coeffs, K: int, length: int):
+    """sum_m coeffs[m] * x[..., K - m : K - m + length]: the causal FIR of a
+    signal with K samples of history in front, one shifted add a tap in the
+    JAX function's order."""
+    y = float(coeffs[0]) * x[..., K : K + length]
+    for m in range(1, len(coeffs)):
+        y = y + float(coeffs[m]) * x[..., K - m : K - m + length]
+    return y
+
+
+def _window_energy_blocked(norm, fb, tabs):
+    """Per-window spectral energies [b, NB, NW] without the overlapped
+    window tensor:
+
+    - Parseval: sum_{k=0..W/2} |DFT(y)_k|^2 = (W/2)*sum(y^2)
+      + ((sum y)^2 + (sum (-1)^t y)^2) / 2, no FFT;
+    - the window-reset FIR equals the global causal convolution z except at
+      each window's first taps-1 positions, where it differs by a small
+      product of the preceding history (``tables.fir_warmup_correction``).
+
+    So the stage is one convolution pass a band, per-block sums and small
+    per-window corrections."""
+    b, L = norm.shape
+    hop, W = C.TEMPO_HOP, C.WINDOW_SIZE
+    NBF = L // hop
+    NW = NBF - 1
+    K = fb.shape[1] - 1
+
+    xp = F.pad(norm, (K, 0))
+    z = torch.stack([_fir(xp, fb[i], K, L) for i in range(fb.shape[0])], dim=1)  # [b, NB, L]
+
+    alt = tabs["alt"][:hop]  # (-1)^t; blocks start at even offsets
+    zb = z.view(b, -1, NBF, hop)
+    S2 = torch.sum(zb * zb, dim=-1)
+    S1 = torch.sum(zb, dim=-1)
+    SA = torch.sum(zb * alt, dim=-1)
+
+    # the K samples before each block, and the block's first K z values
+    hist = xp[:, :L].reshape(b, NBF, hop)[:, :, :K]
+    zh = zb[..., :K]
+    # full precision: delta cancels z's history tail (TF32 off on the GPU)
+    delta = torch.einsum("bwk,njk->bnwj", hist, tabs["warm"])
+    d_s2 = torch.sum(2.0 * zh * delta + delta * delta, dim=-1)
+    d_s1 = torch.sum(delta, dim=-1)
+    d_sa = torch.sum(delta * alt[:K], dim=-1)
+
+    sum_y2 = S2[..., :NW] + S2[..., 1:] + d_s2[..., :NW]
+    sum_y = S1[..., :NW] + S1[..., 1:] + d_s1[..., :NW]
+    sum_a = SA[..., :NW] + SA[..., 1:] + d_sa[..., :NW]
+    return (W / 2) * sum_y2 + (sum_y * sum_y + sum_a * sum_a) / 2.0
+
+
+def _fir_per_window(frames, coeffs):
+    """Causal FIR of each window [..., W] with zero state at its start."""
+    K = len(coeffs) - 1
+    return _fir(F.pad(frames, (K, 0)), coeffs, K, frames.shape[-1])
+
+
+def _window_energy(y, cfg: AnalysisConfig, tabs):
+    """sum_{k=0..W/2} |DFT(y)_k|^2 of each window: [b, NW, W] -> [b, NW]."""
+    dtype = cfg.torch_dtype
+    mode = cfg.tempo_energy_mode
+    if mode in ("parseval", "parseval_framed"):
+        total = torch.sum(y * y, dim=-1)
+        dc = torch.sum(y, dim=-1)
+        nyq = torch.sum(y * tabs["alt"], dim=-1)
+        return (C.WINDOW_SIZE / 2) * total + (dc * dc + nyq * nyq) / 2.0
+    if mode == "fft_strict":
+        # the reference's accumulator: a float32 running sum of float64 bin
+        # powers, rounded to float32 after every add (`float sum_fft +=
+        # double`, src/tempo_atk_sort.c:142-149), one add a bin
+        X = torch.fft.rfft(y.to(torch.float64), dim=-1)
+        abs2 = X.real * X.real + X.imag * X.imag  # [..., W/2 + 1] float64
+        del X
+        acc = torch.zeros(abs2.shape[:-1], dtype=torch.float32, device=y.device)
+        for k in range(abs2.shape[-1]):
+            acc = (acc.to(torch.float64) + abs2[..., k]).to(torch.float32)
+        return acc.to(dtype)
+    if mode != "fft":
+        raise ValueError(f"unknown tempo_energy_mode {mode}")
+    X = torch.fft.rfft(y, dim=-1)
+    return torch.sum((X.real * X.real + X.imag * X.imag).to(dtype), dim=-1)
+
+
+def band_energies(batch: PCMBatch, cfg: AnalysisConfig, sums=None) -> torch.Tensor:
+    """The XLA-path stage's per-band window energies fa [B, NB, NBF] in the
+    config's dtype on the batch's device (NBF = L // 256; per song, slots
+    past its window count stay zero). ``sums``: the prepass's ``(sum s,
+    sum s^2)`` when the caller has them. Runs a block of rows at a time
+    (``types.row_blocks``, counting every band's copy of the signal), so
+    that a float64 batch at L=2^23 fits."""
+    dtype = cfg.torch_dtype
+    W, hop = C.WINDOW_SIZE, C.TEMPO_HOP
+    samples = batch.samples
+    B, L = samples.shape
+    n = batch.n_samples.to(torch.int64)
+    if sums is None:
+        sums = fs.prepass_sums(samples, batch.n_samples)
+    fb = tables.bandpass_filterbank(cfg.nb_bands, cfg.band_taps, cfg.filterbank)
+    tabs = device_tables(cfg.nb_bands, cfg.band_taps, cfg.filterbank, samples.device,
+                         cfg.iir_block, dtype=dtype)
+    out = []
+    for b0, b1 in row_blocks(B, L * fb.shape[0]):
+        norm = _normalize_signal(samples[b0:b1], n[b0:b1], (sums[0][b0:b1], sums[1][b0:b1]),
+                                 dtype)
+        if cfg.tempo_energy_mode == "parseval":
+            out.append(_window_energy_blocked(norm, fb, tabs))
+            continue
+        frames = frame_signal(norm, W, hop)  # a view [b, NW, W]
+        out.append(torch.stack(
+            [_window_energy(_fir_per_window(frames, fb[i]), cfg, tabs)
+             for i in range(fb.shape[0])], dim=1))
+        del frames, norm
+    energy = torch.cat(out)
+    NW = energy.shape[-1]
+    trunc_n = n - n % W
+    n_windows = -torch.div(-(trunc_n - W), hop, rounding_mode="floor")  # ceil
+    wmask = torch.arange(NW, device=energy.device)[None, :] < n_windows[:, None]
+    energy = energy * wmask[:, None, :].to(dtype)
+    # window energies land in nb_frames slots; the trailing slots stay zero
+    # (the reference calloc's nb_frames entries, ~nb_frames - 2 windows run)
+    return F.pad(energy, (0, L // hop - NW))
+
+
+def envelope_energies(batch: PCMBatch, cfg: AnalysisConfig) -> torch.Tensor:
+    """Single-band view of ``band_energies`` ([B, NBF])."""
+    if cfg.nb_bands != 1:
+        raise ValueError("envelope_energies is the single-band interface")
+    return band_energies(batch, cfg)[:, 0]
+
+
+def envelope_scores(batch: PCMBatch, cfg: AnalysisConfig):
+    """([B] tempo, [B] attack) float32 of the XLA-path energies, finished as
+    ``cfg.tempo_finish`` says: on the batch's device, or on the host in
+    float64 for ``"host"`` (the JAX function runs its working-dtype chain
+    there; the host finish is the port's beat-exact one)."""
+    fa = band_energies(batch, cfg)
+    if cfg.tempo_finish != "host":
+        return envelope_finish_device(fa, batch.n_samples, batch.durations, cfg)
+    tempo, attack = envelope_finish_host(
+        fa.cpu().numpy(), batch.n_samples.cpu().numpy(), batch.durations.cpu().numpy()
+    )
+    dev = batch.samples.device
+    return torch.from_numpy(tempo).to(dev), torch.from_numpy(attack).to(dev)
+
+
+def _finish_dtype(cfg: AnalysisConfig) -> torch.dtype:
+    """float64 for the beat-exact finish, the config's dtype for "device"."""
+    return cfg.torch_dtype if cfg.tempo_finish == "device" else torch.float64
 
 
 def _envelope_pipeline(fa, n, cfg: AnalysisConfig):
-    """Band energies -> weighted envelope, in float64.
+    """Band energies -> weighted envelope, in float64 (``"device_exact"``)
+    or in the config's dtype with ``cfg.iir_mode`` (``"device"``).
 
     Returns (wa [B, NB, 2*NBF], wa_edges, ss_src, last_excluded, j, n2)."""
-    fa = fa.to(torch.float64)
+    dtype = _finish_dtype(cfg)
+    fa = fa.to(dtype)
     B, NB, NBF = fa.shape
     n = n.to(torch.int64)
     nbf = torch.div(n - n % C.WINDOW_SIZE, C.TEMPO_HOP, rounding_mode="floor")
 
     comp = torch.log(1.0 + C.MU * fa) / math.log(1.0 + C.MU)
     u = torch.stack([comp, torch.zeros_like(comp)], dim=-1).reshape(B, NB, 2 * NBF)
-    tabs = device_tables(
-        cfg.nb_bands, cfg.band_taps, cfg.filterbank, fa.device, cfg.iir_block
-    )
-    lp = lfilter_blocked(u, (tabs["iir_L"], tabs["iir_Z"], tabs["iir_M"], tabs["iir_N"]))
+    iir_mode = cfg.iir_mode if cfg.tempo_finish == "device" else "blocked"
+    if iir_mode == "scan":
+        lp = lfilter_scan(C.BUTTER_B, C.BUTTER_A, u)
+    elif iir_mode == "blocked":
+        tabs = device_tables(cfg.nb_bands, cfg.band_taps, cfg.filterbank, fa.device,
+                             cfg.iir_block, dtype=dtype)
+        lp = lfilter_blocked(u, (tabs["iir_L"], tabs["iir_Z"], tabs["iir_M"], tabs["iir_N"]))
+    else:
+        raise ValueError(f"unknown iir_mode {iir_mode}")
 
     diff = torch.cat(
         [lp[..., :1], torch.clamp_min(lp[..., 1:] - lp[..., :-1], 0.0)], dim=-1
@@ -110,25 +299,28 @@ def _count_beats(ss_src, wa, last_excluded, j, n2, return_aux=False):
 
 def envelope_finish_device(fa, n, durations, cfg: AnalysisConfig, return_aux: bool = False):
     """fa [B, NB, NBF] band energies, n/durations [B] -> ([B] tempo,
-    [B] attack) float32, computed in float64 on fa's device.
+    [B] attack) float32 on fa's device: computed in float64 for
+    ``tempo_finish="device_exact"``, in the config's dtype with
+    ``cfg.iir_mode`` for ``"device"`` (a kernel config's float64 energies
+    enter it cast to float32, as the JAX package's float32 energies do).
 
     With ``return_aux`` also returns ``(beat, r2, peaks, mid)``: the beat
     count, the smoothed envelope, the peak mask padded to r2's full length
     and the valid-range mask, from the same detection that gave the tempo
     (``bliss_tpu/features/tempo.py:247-254``), for ``beat_metrics``."""
-    if cfg.tempo_finish != "device_exact":
+    if cfg.tempo_finish == "host":
         raise NotImplementedError(
-            f"tempo_finish={cfg.tempo_finish!r} does not finish on the device "
-            "here: 'host' is envelope_finish_host, 'device' is ROADMAP M7"
+            "tempo_finish='host' does not finish on the device: envelope_finish_host"
         )
+    dtype = _finish_dtype(cfg)
     wa, wa_edges, ss_src, last_excluded, j, n2 = _envelope_pipeline(fa, n, cfg)
-    atk_sum = torch.sum(wa * last_excluded[:, None, :], dim=(1, 2))
+    atk_sum = torch.sum(wa * last_excluded[:, None, :].to(dtype), dim=(1, 2))
     beat, (r2, peaks, mid) = _count_beats(
         ss_src, wa_edges, last_excluded, j, n2, return_aux=True
     )
     # duration <= 0 gives an inf/nan tempo: the reference's own behavior
-    tempo = C.TEMPO_SCALE * beat.to(torch.float64) / durations.to(torch.float64) + C.TEMPO_BIAS
-    attack = C.ATTACK_SCALE * atk_sum / n.to(torch.float64) + C.ATTACK_BIAS
+    tempo = C.TEMPO_SCALE * beat.to(dtype) / durations.to(dtype) + C.TEMPO_BIAS
+    attack = C.ATTACK_SCALE * atk_sum / n.to(dtype) + C.ATTACK_BIAS
     if return_aux:
         # peaks cover r2[:, 1:-1]: pad them to r2's length, one aux layout
         aux = (beat, r2, F.pad(peaks, (1, 1)), mid)

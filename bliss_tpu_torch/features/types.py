@@ -1,5 +1,6 @@
 """Batched PCM container shared by all analyzers, the device rule of the
-entry points, and the extended features' column names."""
+entry points, the row blocks of the XLA-path stage, and the extended
+features' column names."""
 
 from __future__ import annotations
 
@@ -23,6 +24,19 @@ EXTENDED_FEATURE_NAMES = (
 ) + tuple(f"mfcc_{i}" for i in range(13)) + tuple(
     f"mfcc_std_{i}" for i in range(13)
 ) + tuple(f"chroma_{i:02d}" for i in range(12))
+
+
+# Samples of PCM (times bands, for the tempo energies) that one block of
+# rows of the XLA-path stage takes at once, so that its temporaries stay
+# bounded whatever the batch.
+ROW_SAMPLES = 1 << 26
+
+
+def row_blocks(B: int, per_row: int, budget: int = ROW_SAMPLES):
+    """(b0, b1) bounds of blocks of rows that hold at most ``budget``
+    elements of ``per_row`` each, at least one row a block."""
+    rows = max(1, budget // max(per_row, 1))
+    return [(b0, min(B, b0 + rows)) for b0 in range(0, B, rows)]
 
 
 def resolve_device(device) -> torch.device:

@@ -161,20 +161,20 @@ def stft_power_reference(
     return power_reference(samples, n_frames, frame_offset)
 
 
-def mono_frames(samples, n_frames, frame_offset=None) -> torch.Tensor:
-    """float32 [B, L/1024, 512]: each frame's C-truncated mono downmix
+def mono_frames(samples, n_frames, frame_offset=None, dtype=torch.float32) -> torch.Tensor:
+    """[B, L/1024, 512] in ``dtype``: each frame's C-truncated mono downmix
     c_div(l + r, 2), zero where the frame does not count (local frame f
     counts while ``frame_offset + f < n_frames``)."""
     B, L = samples.shape
     NF = L // FRAME
     pairs = samples.reshape(B, NF, C.WINDOW_SIZE, 2).to(torch.int32)
-    mono = c_div(pairs[..., 0] + pairs[..., 1], 2).to(torch.float32)
+    mono = c_div(pairs[..., 0] + pairs[..., 1], 2).to(dtype)
     del pairs
     frame = torch.arange(NF, device=samples.device)[None, :]
     if frame_offset is not None:
         frame = frame + frame_offset[:, None].to(torch.int64)
     keep = frame < n_frames[:, None]
-    return mono * keep[..., None].to(torch.float32)
+    return mono * keep[..., None].to(dtype)
 
 
 def power_reference(samples, n_frames, frame_offset=None) -> torch.Tensor:

@@ -5,8 +5,10 @@ analysis path reads. They are copied rather than imported because importing
 anything under ``bliss_tpu`` imports JAX, which the port's machines do not
 have; ``tests/test_torch_tables.py`` holds each copy equal to the original.
 
-- ``amplitude_cdf_poly``: Chebyshev fit of the iterated smoothing kernel's
-  CDF, so the amplitude analyzer is one weighted sum over sample values.
+- ``amplitude_weight_table`` / ``amplitude_cdf_poly``: the iterated
+  smoothing kernel's windowed sum as a 65 536-entry table, and a Chebyshev
+  fit of its CDF, so the amplitude analyzer is one weighted sum over sample
+  values.
 - ``hann_window`` / ``rdft_matrices``: the frequency analyzer's windowed DFT.
 - ``bandpass_filterbank`` / ``fir_warmup_correction``: the tempo analyzer's
   FIR and the per-window warm-up correction that lets window energies be
@@ -36,6 +38,25 @@ def smoothing_kernel_iterated() -> np.ndarray:
     for _ in range(C.N_SMOOTH_PASSES + 1):
         k = np.convolve(k, base)
     return k
+
+
+@functools.lru_cache(maxsize=None)
+def amplitude_weight_table() -> np.ndarray:
+    """w[j] = sum over the integral window of the iterated smoothing kernel.
+
+    amplitude = AMPLITUDE_SCALE * (100/(end-start)) * sum_i w[s_i + 2^15]
+                + AMPLITUDE_BIAS
+    reproduces histogram -> 301x smoothing -> windowed integral exactly: the
+    kernel's support is +-903 bins and the window sits >= 30864 bins from
+    either edge, so the reference's boundary handling never reaches it.
+    """
+    K = smoothing_kernel_iterated()
+    half = (len(K) - 1) // 2  # 903
+    Sp = np.concatenate([[0.0], np.cumsum(K)])
+    js = np.arange(C.HISTOGRAM_SIZE)
+    lo = np.clip(C.INTEGRAL_INF - js + half, 0, len(K))
+    hi = np.clip(C.INTEGRAL_SUP - js + half + 1, 0, len(K))
+    return Sp[hi] - Sp[lo]
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,16 +98,28 @@ def hann_window() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def rdft_matrices() -> tuple[np.ndarray, np.ndarray]:
+def rdft_matrices(zero_nyquist: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """Real/imag DFT matrices [WINDOW_SIZE, WINDOW_SIZE//2 + 1].
 
     X = x @ (re + i*im) equals numpy's unnormalized rfft.
+
+    zero_nyquist=True zeroes the last (Nyquist) column: the reference's
+    av_rdft packs the Nyquist real part into bin 0's imaginary slot and its
+    accumulation loop never writes power_spectrum[256]
+    (reference: src/frequency_sort.c:86-93), so the frequency analyzer's
+    peak runs over bins 1..255 only.
     """
     n = C.WINDOW_SIZE
     k = np.arange(n // 2 + 1)
     t = np.arange(n)
     ang = -2.0 * np.pi * np.outer(t, k) / n
-    return np.cos(ang), np.sin(ang)
+    re, im = np.cos(ang), np.sin(ang)
+    if zero_nyquist:
+        re = re.copy()
+        im = im.copy()
+        re[:, -1] = 0.0
+        im[:, -1] = 0.0
+    return re, im
 
 
 @functools.lru_cache(maxsize=None)

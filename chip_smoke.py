@@ -104,7 +104,27 @@ Phases, one line each, stopping at the first failure:
    held within the gates of ``analyze_features``), and, inside phase 10 (c)
    on its files, the CLI's ``scan --extended`` (49-column store rows, the
    plain scan's core rows) and ``radio --extended`` (``kmeans`` of the
-   z-scored rows, resumed from the store).
+   z-scored rows, resumed from the store);
+12. the XLA-path config modes (M7; no kernel of their own: PyTorch on the
+   card), with TF32 asserted off and no launch of K1, K2 or K3 on any of
+   them: (a) ``api.analyze_features`` on the main batch under
+   ``AnalysisConfig()`` and under the float32 config ``bliss_tpu`` picks on
+   a CPU backend, each held to phase 4's ``for_gpu()`` rows (amplitude,
+   frequency, attack within 1e-3; the songs whose beat count differs
+   counted, none by more than one, for the float32 working-dtype finish in
+   the float64 finish of the same energies, its own flips each within its
+   rounding of the envelope), with ``analyze_batch``'s
+   warm median of 5, a trace and the peak device memory; (b)
+   ``for_parity()`` at B=16, L=2^23, timed the same way, and on 4 of its
+   songs cut to 2^21 samples held to ``tests/oracle.py::analyze_oracle``
+   (NumPy and SciPy, in 4 spawned processes) and to the port's own CPU run
+   (beats identical, scores within 1e-5); (c) the mode matrix at B=4,
+   L=2^20 in float64 (amplitude table vs iterative, spectrum fft vs matmul,
+   tempo energies parseval vs parseval_framed and fft, the attack of
+   fft_strict and its rows against the CPU, the IIR blocked vs scan,
+   band_taps=161 against the CPU), and the scan IIR's
+   finish at L=2^23 timed once; (d) the CLI's ``analyze --filterbank
+   reference36`` through the prepass and K1.
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -1652,6 +1672,315 @@ def extended_stream_part(songs, durs, device, label) -> None:
         f"launches {launch_counts()}; (b) took {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 12: the XLA-path config modes (M7) ---------------------------------
+
+PARITY_B = 16  # for_parity() at B=16, L=2^23
+ORACLE_SONGS, ORACLE_L = 4, 1 << 21  # songs held to tests/oracle.py, cut to 2^21 samples
+MODES_B, MODES_L = 4, 1 << 20  # the mode matrix
+
+
+def xla_configs() -> dict:
+    """The XLA-path configs phase 12 runs: the package default
+    ``AnalysisConfig()`` (float32, the "table" amplitude, the matmul
+    spectrum, parseval energies, the working-dtype finish) and the config
+    ``bliss_tpu``'s ``default_config()`` picks on a CPU backend
+    (``bliss_tpu/api.py:48-52``: float32, "poly", the beat-exact finish)."""
+    from bliss_tpu_torch import AnalysisConfig
+
+    return {"default": AnalysisConfig(),
+            "jax_cpu_float32": AnalysisConfig(dtype="float32", amplitude_mode="poly",
+                                              tempo_finish="device_exact")}
+
+
+def no_kernel_launch(label: str) -> dict:
+    """The launch counts since the last ``reset_counts``: none of K1, K2, K3
+    (the XLA-path stage takes the prepass's exact sums only)."""
+    launches = launch_counts()
+    if launches["fused_all"] or launches["fused_stats"] or launches["stft_power"]:
+        raise AssertionError(f"{label} launched {launches}; want no K1, K2 or K3")
+    return launches
+
+
+def f32_finish_flips(batch, cfg):
+    """The float32 working-dtype finish of ``cfg``'s energies against the
+    float64 finish of the same energies: for each song whose beats differ,
+    every slot where the two peak masks differ must lie within the float32
+    chain's own rounding of the smoothed envelope (|float64 margin against
+    eps| <= max |r2_f32 - r2_f64| of the song). Returns (a line of text, the
+    float64 finish's beat counts)."""
+    from bliss_tpu_torch import constants as C
+    from bliss_tpu_torch.features.analyze import _device_stage
+    from bliss_tpu_torch.features.tempo import envelope_finish_device
+
+    fa = _device_stage(batch, cfg)[2]
+    n, d = batch.n_samples, batch.durations
+    _, _, aux32 = envelope_finish_device(fa, n, d, cfg, return_aux=True)
+    exact = dataclasses.replace(cfg, tempo_finish="device_exact")
+    _, _, aux64 = envelope_finish_device(fa, n, d, exact, return_aux=True)
+    b32, r32, p32, _ = (t.cpu().numpy() for t in aux32)
+    b64, r64, p64, _ = (t.cpu().numpy() for t in aux64)
+    worst, errs = 0.0, []
+    for i in np.nonzero(b32 != b64)[0]:
+        errs.append(float(np.abs(r32[i] - r64[i]).max()))
+        for j in np.nonzero(p32[i] != p64[i])[0]:
+            margin = min(r64[i, j] - r64[i, j - 1], r64[i, j] - r64[i, j + 1]) - C.PEAK_EPSILON
+            if abs(margin) > errs[-1]:
+                raise AssertionError(f"song {i} slot {j}: a float32 flip of margin {margin:.3e} "
+                                     f"beyond the float32 envelope's error {errs[-1]:.3e}")
+            worst = max(worst, abs(margin) / errs[-1])
+    return (f"the float32 finish vs the float64 finish of the same energies: "
+            f"{int((b32 != b64).sum())} songs differ, by {int(np.abs(b32 - b64).max())} beats at "
+            f"most, each flipped slot within the float32 envelope's error (largest |margin| / "
+            f"error {worst:.3f}; that error {max(errs, default=0.0):.2e} at most)"), b64
+
+
+def xla_batch_part(arrays, durations, main_rows, device, label) -> None:
+    """Phase 12 (a): ``api.analyze_features`` under each of ``xla_configs``
+    on the main batch, held to the main path's rows: amplitude, frequency
+    and attack within 1e-3; beat counts within +-1, the songs that differ
+    counted. Under the float32 working-dtype finish the +-1 holds for the
+    float64 finish of the config's own energies, and the float32 finish's
+    own flips are checked by ``f32_finish_flips`` (``bliss_tpu``'s float32
+    finish counts 21 and 14 beats more than its float64 one on two songs of
+    this batch's generator at L=2^23, on the CPU:
+    ``tests/test_torch_modes.py::test_float32_finish_at_full_length``). Then
+    ``analyze_batch``'s warm median of 5 (CUDA events), a trace and the peak
+    device memory."""
+    from bliss_tpu_torch import api
+    from bliss_tpu_torch.features.analyze import analyze_batch
+    from bliss_tpu_torch.features.types import PCMBatch
+
+    batch = PCMBatch.from_arrays(arrays, durations, device=device)
+    dur = np.asarray(durations)
+    main_beats = beat_counts(main_rows, dur)
+    for name, cfg in xla_configs().items():
+        reset_peak(device)
+        reset_counts()
+        rows = api.analyze_features(batch, cfg)
+        launches = no_kernel_launch(f"phase 12 (a) {name}")
+        mem = peak_text(device)
+        if rows.shape != main_rows.shape or not np.isfinite(rows).all():
+            raise AssertionError(f"phase 12 (a) {name}: rows not finite {list(main_rows.shape)}")
+        col_err = np.abs(rows[:, 1:] - main_rows[:, 1:]).max(axis=0)
+        if not (col_err <= 1e-3).all():
+            raise AssertionError(f"phase 12 (a) {name}: amplitude/frequency/attack differ from "
+                                 f"for_gpu() by {col_err}")
+        dbeats = beat_counts(rows, dur) - main_beats
+        flips, gated = "", dbeats
+        if cfg.tempo_finish == "device":
+            flips, b64 = f32_finish_flips(batch, cfg)
+            gated = b64 - main_beats
+            flips = f"; {flips}; its float64 finish vs for_gpu(): " \
+                    f"{int(np.count_nonzero(gated))} songs differ"
+        if np.abs(gated).max() > 1:
+            raise AssertionError(f"phase 12 (a) {name}: beat counts differ from for_gpu() by up "
+                                 f"to {np.abs(gated).max()} (songs {np.nonzero(gated)[0]})")
+        ms = device_times(lambda: analyze_batch(batch, cfg), device)
+        log(f"xla modes (phase 12) (a) {name} B={len(arrays)} L={batch.samples.shape[1]} through "
+            f"api.analyze_features: launches {launches}; vs for_gpu(): max |diff| amplitude "
+            f"{col_err[0]:.2e} frequency {col_err[1]:.2e} attack {col_err[2]:.2e}, "
+            f"{int(np.count_nonzero(dbeats))} songs count other beats (by "
+            f"{int(dbeats.min())}..{int(dbeats.max())}){flips}; analyze_batch card-resident {ms}; "
+            f"{mem} {label}")
+        log(f"xla modes (phase 12) (a) {name} analyze_batch trace: "
+            f"{trace_text(lambda: analyze_batch(batch, cfg), device)} {label}")
+
+
+def xla_parity_part(arrays, durations, device, label, pool) -> None:
+    """Phase 12 (b): ``for_parity()`` through ``api.analyze_features`` at
+    B=PARITY_B, L=2^23, timed as (a); then ORACLE_SONGS of its songs cut to
+    ORACLE_L samples, held to ``tests/oracle.py::analyze_oracle`` (NumPy and
+    SciPy, computed in ``pool`` meanwhile) and to the port's own CPU run of
+    the same rows: beats identical, scores within 1e-5."""
+    import oracle
+
+    from bliss_tpu_torch import AnalysisConfig, api
+    from bliss_tpu_torch.features.analyze import analyze_batch
+    from bliss_tpu_torch.features.types import PCMBatch
+
+    cut = [a[:ORACLE_L] for a in arrays[:ORACLE_SONGS]]
+    cut_durs = [int(a.shape[0]) // (2 * SR) for a in cut]
+    want = pool.map(oracle.analyze_oracle, cut, cut_durs)
+    cfg = AnalysisConfig.for_parity()
+    batch = PCMBatch.from_arrays(arrays[:PARITY_B], durations[:PARITY_B], device=device)
+    reset_peak(device)
+    reset_counts()
+    rows = api.analyze_features(batch, cfg)
+    launches = no_kernel_launch("phase 12 (b) for_parity()")
+    mem = peak_text(device)
+    if not np.isfinite(rows).all():
+        raise AssertionError("phase 12 (b): for_parity() rows not finite")
+    ms = device_times(lambda: analyze_batch(batch, cfg), device)
+    log(f"xla modes (phase 12) (b) for_parity() B={PARITY_B} L=2^23 through "
+        f"api.analyze_features: launches {launches}; analyze_batch card-resident {ms}; {mem} {label}")
+    log(f"xla modes (phase 12) (b) for_parity() analyze_batch trace: "
+        f"{trace_text(lambda: analyze_batch(batch, cfg), device)} {label}")
+    del batch
+    t0 = time.perf_counter()
+    card = api.analyze_pcm(cut, cut_durs, cfg=cfg, device=device)
+    cpu = api.analyze_pcm(cut, cut_durs, cfg=cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    ref = np.array([[w["tempo"], w["amplitude"], w["frequency"], w["attack"]] for w in want],
+                   np.float32)
+    errs = {}
+    for what, other in (("oracle", ref), ("cpu", cpu)):
+        if not np.array_equal(beat_counts(card, cut_durs), beat_counts(other, cut_durs)):
+            raise AssertionError(f"phase 12 (b): for_parity() beats differ from the {what}'s: "
+                                 f"{card[:, 0]} vs {other[:, 0]}")
+        errs[what] = np.abs(card[:, 1:].astype(np.float64) - other[:, 1:]).max(axis=0)
+        if not (errs[what] <= 1e-5).all():
+            raise AssertionError(f"phase 12 (b): for_parity() differs from the {what}'s by {errs[what]}")
+    log(f"xla modes (phase 12) (b) for_parity() on {ORACLE_SONGS} songs cut to 2^21 samples: "
+        f"beats identical to tests/oracle.py::analyze_oracle and to the port's CPU run "
+        f"({cpu_s:.1f} s with the card's); max |diff| (amplitude, frequency, attack) vs the "
+        f"oracle {errs['oracle'].tolist()}, vs the CPU run {errs['cpu'].tolist()}")
+
+
+def xla_modes_part(arrays, durations, main_fa, device, label) -> None:
+    """Phase 12 (c): the mode matrix at B=MODES_B, L=MODES_L in float64,
+    each pair held as ``tests/test_features_unit.py:44-135`` holds it:
+    amplitude table vs iterative (5e-5), spectrum fft vs matmul (1e-6),
+    tempo energies parseval vs parseval_framed and fft (1e-9, beats
+    identical), the IIR blocked vs scan (1e-9, beats identical). fft_strict
+    sums each window's bins in float32 as the reference does, so it may
+    flip a marginal beat against parseval's float64 energies (``bliss_tpu``
+    does on song 0 of these four, on the CPU): its attack within 1e-3 of
+    parseval's, its songs with other beats counted, and its rows identical
+    in beats and within 1e-5 to the port's CPU run of the same rows (which
+    ``tests/test_torch_modes.py`` holds to ``bliss_tpu``'s). band_taps=161
+    against the CPU run the same way. Then the scan IIR's finish at L=2^23
+    on the main batch's energies, timed once."""
+    from bliss_tpu_torch import AnalysisConfig
+    from bliss_tpu_torch.features.amplitude import amplitude_scores
+    from bliss_tpu_torch.features.analyze import analyze_batch
+    from bliss_tpu_torch.features.frequency import frequency_scores
+    from bliss_tpu_torch.features.tempo import envelope_finish_device, envelope_scores
+    from bliss_tpu_torch.features.types import PCMBatch
+
+    cut = [a[:MODES_L] for a in arrays[:MODES_B]]
+    durs = [int(a.shape[0]) // (2 * SR) for a in cut]
+    batch = PCMBatch.from_arrays(cut, durs, device=device)
+    cpu_batch = PCMBatch.from_arrays(cut, durs, device="cpu")
+    base = AnalysisConfig(dtype="float64")
+
+    def run(fn, on=batch, **kw):
+        out = fn(on, dataclasses.replace(base, **kw))
+        return np.stack([t.cpu().numpy() for t in out], 1) if isinstance(out, tuple) \
+            else out.cpu().numpy()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    env = run(envelope_scores)
+    t_scan = time.perf_counter()
+    scan = run(envelope_scores, iir_mode="scan")
+    scan_s = time.perf_counter() - t_scan
+    strict = run(envelope_scores, tempo_energy_mode="fft_strict")
+    # (what, a, b, gate, beats identical)
+    pairs = [
+        ("amplitude table vs iterative", run(amplitude_scores, amplitude_mode="table"),
+         run(amplitude_scores, amplitude_mode="iterative", strict_accumulation=True), 5e-5, False),
+        ("spectrum fft vs matmul", run(frequency_scores, spectrum_mode="fft"),
+         run(frequency_scores), 1e-6, False),
+        ("tempo energies parseval vs parseval_framed", env,
+         run(envelope_scores, tempo_energy_mode="parseval_framed"), 1e-9, True),
+        ("tempo energies parseval vs fft", env, run(envelope_scores, tempo_energy_mode="fft"),
+         1e-9, True),
+        ("attack, parseval vs fft_strict", env[:, 1], strict[:, 1], 1e-3, False),
+        ("fft_strict, card vs CPU", strict,
+         run(envelope_scores, on=cpu_batch, tempo_energy_mode="fft_strict"), 1e-5, True),
+        ("iir blocked vs scan", env, scan, 1e-9, True),
+    ]
+    wide = dataclasses.replace(base, band_taps=161)
+    pairs.append(("band_taps=161, card vs CPU", analyze_batch(batch, wide).cpu().numpy(),
+                  analyze_batch(cpu_batch, wide).numpy(), 1e-5, True))
+    launches = no_kernel_launch("phase 12 (c)")
+    parts = []
+    for what, a, b, tol, beats in pairs:
+        if beats and not np.array_equal(a[..., 0], b[..., 0]):
+            raise AssertionError(f"phase 12 (c) {what}: beats differ: {a[..., 0]} vs {b[..., 0]}")
+        err = float(np.abs(a.astype(np.float64) - b).max())
+        if not err <= tol:
+            raise AssertionError(f"phase 12 (c) {what}: max |diff| {err:.3e} > {tol:.0e}")
+        parts.append(f"{what} {err:.2e} (gate {tol:.0e})")
+    flips = beat_counts(strict, durs) - beat_counts(env, durs)
+    log(f"xla modes (phase 12) (c) B={MODES_B} L=2^20 float64, {time.perf_counter() - t0:.1f} s "
+        f"(the scan IIR's envelope_scores {scan_s:.2f} s), launches {launches}: " + "; ".join(parts)
+        + f"; fft_strict counts other beats than parseval on {int(np.count_nonzero(flips))} songs "
+        f"(by {flips.tolist()})")
+    fa, n, d = main_fa
+    scan_cfg = dataclasses.replace(base, iir_mode="scan")
+    sync(device)
+    t0 = time.perf_counter()
+    envelope_finish_device(fa, n, d, scan_cfg)
+    sync(device)
+    log(f"xla modes (phase 12) (c) iir_mode='scan' float64 finish of the main batch's energies "
+        f"(B={fa.shape[0]}, {2 * fa.shape[-1]} envelope steps, L=2^23): one run "
+        f"{time.perf_counter() - t0:.2f} s, against the blocked finish's "
+        f"{device_times(lambda: envelope_finish_device(fa, n, d, base), device)} {label}")
+
+
+def xla_cli_part(arrays, durations, device, label) -> None:
+    """Phase 12 (d), the CLI: ``analyze --filterbank reference36`` (F5) on
+    one main-batch song (``api._decode`` patched to give its PCM: the card's
+    machine decodes no files), through the prepass and K1, its force vector
+    that of ``analyze_pcm`` of the same PCM under the same config."""
+    from bliss_tpu_torch import AnalysisConfig, api
+    from bliss_tpu_torch.io import DecodedAudio
+
+    song, dur = arrays[1], durations[1]
+    audio = DecodedAudio(song, 2, SR, 0, 2, 0, dur, "song.flac", "", "song", "", "", "")
+    reset_counts()
+    with mock.patch.object(api, "_decode", lambda path: audio):
+        out, secs = run_cli(["--device", str(device), "analyze", "song.flac",
+                             "--filterbank", "reference36"])
+    launches = launch_counts()
+    if launches["fused_all"] != 1 or launches["prepass"] != 1:
+        raise AssertionError(f"the CLI's reference36 analyze launched {launches}; want the "
+                             f"prepass and K1 once")
+    line = next(ln for ln in out.splitlines() if ln.startswith("Force vector"))
+    got = np.array(line.split(":")[1].strip(" ()").split(", "), np.float64)
+    cfg = dataclasses.replace(AnalysisConfig.for_gpu(), filterbank="reference36", nb_bands=None,
+                              band_taps=None)
+    want = api.analyze_pcm([song], [dur], cfg=cfg, device=device)[0]
+    if not np.abs(got - want).max() <= 1e-6:
+        raise AssertionError(f"the CLI's reference36 analyze printed {got}, analyze_pcm gives {want}")
+    log(f"xla modes (phase 12) (d) the CLI's analyze --filterbank reference36 (36x33 bands, F5): "
+        f"{line}, = analyze_pcm's; launches {launches}; {secs:.2f} s {label}")
+
+
+def device_times(fn, device) -> str:
+    """Warm median of 5 by CUDA events, with the least and most."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return "not measured (no card)"
+    times = cuda_times(fn, reps=5)
+    return (f"warm median of 5 {statistics.median(times):.3f} ms (least {min(times):.3f}, "
+            f"most {max(times):.3f})")
+
+
+def trace_text(fn, device) -> str:
+    return device_trace(fn) if torch.device(device).type == "cuda" else "not measured (no card)"
+
+
+def xla_phase(arrays, durations, main_rows, main_fa, device, label) -> None:
+    """Phase 12: the XLA-path config modes (M7), (a)-(d); TF32 must be off."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is allowed; phase 12's float32 products need full float32")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=ORACLE_SONGS, mp_context=ctx) as pool:
+        xla_batch_part(arrays, durations, main_rows, device, label)
+        xla_parity_part(arrays, durations, device, label, pool)
+    xla_modes_part(arrays, durations, main_fa, device, label)
+    xla_cli_part(arrays, durations, device, label)
+    log(f"xla modes (phase 12) took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -1663,7 +1992,7 @@ def main() -> int:
     from bliss_tpu_torch import AnalysisConfig, api
     from bliss_tpu_torch.features.analyze import analyze_batch
     from bliss_tpu_torch.features.types import PCMBatch
-    from bliss_tpu_torch.features.analyze import _device_stage_packed, _unpack_stage
+    from bliss_tpu_torch.features.analyze import _device_stage, _device_stage_packed, _unpack_stage
     from bliss_tpu_torch.features.tempo import envelope_finish_host
     from bliss_tpu_torch.ablate import breakdown, matred, probe
     from bliss_tpu_torch.ablate import fused as ab_fused
@@ -1925,6 +2254,12 @@ def main() -> int:
     # 10. similarity and the CLI, around the main path's rows, with (a)'s
     # extended columns as the D = 49 library's
     cli_launches = similarity_phase(ext_rows["main"], "cuda", label)
+
+    # 12. the XLA-path config modes, held to the main path's rows and energies
+    main_fa = (_device_stage(batch, cfg)[2], batch.n_samples, batch.durations)
+    del batch
+    xla_phase(arrays, durations, out, main_fa, "cuda", label)
+    del main_fa
 
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():

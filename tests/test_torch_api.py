@@ -1,7 +1,7 @@
 """The port's Song API against bliss_tpu's on the same FLAC files: the
 Mapping fields, force, calm_or_loud, analyze, distance and cosine on
 filenames, the legacy ``*_file`` status codes, ``Song.extended_analysis``,
-and the methods and options the port does not run yet."""
+the per-analyzer methods, and the options the port does not run yet."""
 
 from unittest import mock
 
@@ -107,9 +107,27 @@ def test_file_functions_return_unexpected_on_a_broken_file(files, fn):
     [("amplitude_analysis", "M7"), ("frequency_analysis", "M7"),
      ("envelope_analysis", "M7")],
 )
-def test_unported_methods_raise(port_songs, method, item):
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(port_songs[0], method)()
+def test_unported_methods_raise(files, method, item):
+    """The per-analyzer methods that ROADMAP item ``item`` ported run the
+    XLA-path analyzer on the Song's device and set its force_vector fields,
+    as bliss_tpu's do: under ``for_parity()`` within 1e-5 of bliss_tpu's,
+    under the main path's config (bliss_tpu's ``for_tpu()``) within 5e-4,
+    beats identical under both."""
+    assert item == "M7"
+    fields = {"amplitude_analysis": ("amplitude",), "frequency_analysis": ("frequency",),
+              "envelope_analysis": ("tempo", "attack")}[method]
+    for cfg, jcfg, tol in ((AnalysisConfig.for_parity(), JConfig.for_parity(), 1e-5),
+                           (AnalysisConfig.for_gpu(), JConfig.for_tpu(), 5e-4)):
+        port = bliss_tpu_torch.Song(device="cpu")
+        port.decode(files[1])
+        ref = bliss_tpu.Song()
+        ref.decode(files[1])
+        got = np.atleast_1d(getattr(port, method)(cfg))
+        want = np.atleast_1d(getattr(ref, method)(jcfg))
+        assert [getattr(port.force_vector, f) for f in fields] == got.tolist()
+        if method == "envelope_analysis":
+            assert got[0] == want[0]  # beats
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
 def test_extended_analysis_matches_jax(jax_songs, port_songs):

@@ -3,10 +3,12 @@
 both packages' ``analyze_library``, the playlist against
 ``bliss_tpu.sim.playlist_order``, radio against ``bliss_tpu.sim.kmeans``,
 and every ``store`` action through both CLIs on copies of one store; the
-``--extended`` surfaces of ``analyze``, ``scan`` and ``radio``; the options
-of unported parts, and the default device without a GPU."""
+``--extended`` surfaces of ``analyze``, ``scan`` and ``radio``; the
+reference filterbanks; the options of unported parts, and the default
+device without a GPU."""
 
 import csv
+import dataclasses
 import os
 import shutil
 import types
@@ -248,9 +250,7 @@ def test_neighbors_csv_is_nearest_neighbors_all(store_dir, tmp_path):
 
 
 UNPORTED = [
-    (["analyze", "F", "--filterbank", "reference5"], "M7"),
     (["scan", "LIB", "--store", "S", "--mesh", "2"], "M10"),
-    (["scan", "LIB", "--store", "S", "--filterbank", "reference36"], "M7"),
     (["radio", "LIB", "--store", "S", "--mesh", "4x2"], "M10"),
     (["playlist", "F", "LIB", "--store", "S", "--mesh", "2"], "M10"),
     (["ml-analyze", "F", "--mesh", "2"], "M10"),
@@ -268,14 +268,63 @@ def test_unported_options_exit_2_before_any_decode_or_store_write(library, tmp_p
     assert not store.exists()
 
 
-def test_a_config_check_supported_refuses_exits_2(library, capsys):
+FILTERBANK_RUNS = [
+    (["analyze", "F", "--filterbank", "reference5"], "reference5"),
+    (["scan", "LIB", "--store", "S", "--batch-size", "6", "--filterbank", "reference36",
+      "-o", "OUT"], "reference36"),
+]
+
+
+@pytest.mark.parametrize("argv,filterbank", FILTERBANK_RUNS, ids=["analyze-reference5",
+                                                                   "scan-reference36"])
+def test_reference_filterbanks_run_and_match_jax_parity(library, tmp_path, capsys, argv,
+                                                        filterbank):
+    """``--filterbank reference5|reference36`` run through the port's
+    kernels (F5) and count the beats of ``bliss_tpu``'s ``for_parity()`` with
+    the same filterbank, the other columns within 5e-4."""
     from bliss_tpu_torch.config import AnalysisConfig
 
-    unported = AnalysisConfig(dtype="float32", fused_kernel=True, tempo_finish="device")
-    with mock.patch.object(cli, "_band_config", return_value=unported), \
+    out = tmp_path / "rows.csv"
+    sub = {"F": library["files"][0], "LIB": str(library["lib"]), "S": str(tmp_path / "store"),
+           "OUT": str(out)}
+    assert cli.main(["--device", "cpu", *[sub.get(a, a) for a in argv]]) == 0
+    printed = capsys.readouterr().out
+    if argv[0] == "analyze":
+        files = library["files"][:1]
+        line = next(ln for ln in printed.splitlines() if ln.startswith("Force vector"))
+        got = np.array([line.split(":")[1].strip(" ()").split(", ")], float)
+    else:
+        files = library["files"]
+        with open(out, newline="") as f:
+            rows = list(csv.reader(f, delimiter=";"))[1:]
+        assert [r[0] for r in rows] == files
+        got = np.array([[float(x) for x in r[1:5]] for r in rows])
+        cfg = dataclasses.replace(AnalysisConfig.for_gpu(), filterbank=filterbank,
+                                  nb_bands=None, band_taps=None)
+        assert len(FeatureStore(sub["S"])) == len(files)
+        port = pipeline.analyze_library(files, cfg=cfg, batch_size=6, device="cpu",
+                                        handle_sigint=False)
+        np.testing.assert_allclose(got, port.features, rtol=0, atol=5e-7)  # "%f"
+    jcfg = dataclasses.replace(JConfig.for_parity(), filterbank=filterbank, nb_bands=None,
+                               band_taps=None)
+    ref = jpipeline.analyze_library(files, cfg=jcfg, batch_size=6, long_song_samples=None,
+                                    handle_sigint=False).features
+    # beats: one beat moves the tempo by 4 / duration, far above "%f"'s 5e-7
+    np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[:, 1:], ref[:, 1:], rtol=0, atol=5e-4)
+
+
+def test_a_config_check_supported_refuses_exits_2(library, capsys):
+    """A config with a mode name neither package knows exits 2 before any
+    decode, naming the field (every single-device config bliss_tpu runs is
+    run, M7)."""
+    from bliss_tpu_torch.config import AnalysisConfig
+
+    unknown = AnalysisConfig(dtype="float32", amplitude_mode="nope")
+    with mock.patch.object(cli, "_band_config", return_value=unknown), \
             mock.patch.object(pipeline, "iter_decode", side_effect=AssertionError("decoded")):
         assert cli.main(["--device", "cpu", "scan", str(library["lib"])]) == 2
-    assert "ROADMAP item M7" in capsys.readouterr().err
+    assert "unknown amplitude_mode 'nope'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [

@@ -7,9 +7,13 @@ runs the prepass sums and the stats kernel's CPU twin, writes two FLAC
 files with the port's writer and scans them with the port's
 ``analyze_library`` on the CPU (the native decoder built at first use), and
 streams a song with ``analyze_song_streaming``, computes the extended
-features (``features/extended.py``) batched and streamed, and runs the similarity
-(``kmeans``, ``nearest_neighbors_all``) and the port's CLI (``store
-neighbors`` on a small store)."""
+features (``features/extended.py``) batched and streamed, runs the XLA-path
+config modes (``features/amplitude.py``, ``features/frequency.py``, the XLA
+half of ``features/tempo.py``, ``dsp/framing.py``, ``dsp/iir.lfilter_scan``)
+under ``AnalysisConfig()`` and ``for_parity()`` and the three ``Song``
+analyzer methods, and runs the similarity (``kmeans``,
+``nearest_neighbors_all``) and the port's CLI (``store neighbors`` on a
+small store)."""
 
 import os
 import subprocess
@@ -77,6 +81,26 @@ assert np.array_equal(rows[:, :4], bliss_tpu_torch.analyze_pcm([long_song, song]
 ext_streamed = analyze_song_streaming(long_song, 3, bliss_tpu_torch.AnalysisConfig.for_gpu(), 1 << 16, extended=True, device="cpu")
 assert ext_streamed.shape == (49,) and np.abs(ext_streamed[4:] - rows[0, 4:]).max() <= 1e-2, ext_streamed
 assert len(extended.EXTENDED_FEATURE_NAMES) == 45 and extended.mel_filterbank().shape == (257, 40)
+from bliss_tpu_torch.dsp.framing import frame_signal
+from bliss_tpu_torch.dsp.iir import lfilter_scan
+from bliss_tpu_torch.features import amplitude, frequency, tempo
+AC = bliss_tpu_torch.AnalysisConfig
+xla = {}
+for name, cfg in (("default", AC()), ("parity", AC.for_parity()),
+                  ("modes", AC(dtype="float64", amplitude_mode="table", spectrum_mode="fft",
+                               tempo_energy_mode="parseval_framed", iir_mode="scan"))):
+    xla[name] = bliss_tpu_torch.analyze_pcm([long_song, song], [3, 1], cfg=cfg, device="cpu")
+    assert xla[name].shape == (2, 4) and np.isfinite(xla[name]).all(), (name, xla[name])
+assert np.abs(xla["parity"][:, 1:] - xla["modes"][:, 1:]).max() <= 1e-3, xla
+assert frame_signal(torch.zeros(2, 4096), 512, 256).shape == (2, 15, 512)
+assert lfilter_scan(np.array([1.0, 0.0]), np.array([1.0, -0.5]), torch.ones(1, 4)).tolist() == [[1.0, 1.5, 1.75, 1.875]]
+with tempfile.TemporaryDirectory() as d:
+    write_flac(f"{d}/s.flac", long_song.reshape(-1, 2), 22050)
+    s = bliss_tpu_torch.Song(device="cpu")
+    s.decode(f"{d}/s.flac")
+parity = AC.for_parity()
+got = [s.amplitude_analysis(parity), s.frequency_analysis(parity), *s.envelope_analysis(parity)]
+assert np.isfinite(got).all() and s.force_vector.attack == got[3], got
 from bliss_tpu_torch import cli
 from bliss_tpu_torch.sim import kmeans, nearest_neighbors_all
 from bliss_tpu_torch.store import FeatureStore

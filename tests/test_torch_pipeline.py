@@ -5,7 +5,6 @@ extended scans."""
 
 import dataclasses
 import threading
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -278,33 +277,60 @@ def test_an_extended_scan_fills_extended_and_keeps_49_column_entries(scans, tmp_
     np.testing.assert_array_equal(narrow.features, plain.features)
 
 
+M7_CHANGES = {"float64": {"dtype": "float64"}, "xla_path": {"fused_kernel": False}}
+
+
+@pytest.fixture(scope="module")
+def m7_refs(scans):
+    """bliss_tpu's scan of the library under each hybrid XLA-path config."""
+    return {
+        name: jpipeline.analyze_library(
+            scans["files"], cfg=dataclasses.replace(JConfig.for_tpu_hybrid(), **change),
+            batch_size=2, long_song_samples=None, handle_sigint=False)
+        for name, change in M7_CHANGES.items()
+    }
+
+
 @pytest.mark.parametrize("entry", ["analyze_library", "_scan"])
-@pytest.mark.parametrize(
-    "change", [{"dtype": "float64"}, {"fused_kernel": False}], ids=["float64", "xla_path"]
-)
-def test_an_unported_hybrid_config_is_refused_before_any_decode(scans, entry, change):
-    """A tempo_finish="host" config the port does not run (the float64
-    parity config, the XLA path) raises naming M7 before a file is decoded
-    or a row stored under its config key."""
-    cfg = dataclasses.replace(AnalysisConfig.for_gpu_hybrid(), **change)
-    store = FeatureStore(str(scans["dir"] / f"refused_{entry}_{'_'.join(change)}"))
-    with mock.patch.object(pipeline, "iter_decode", side_effect=AssertionError("decoded")):
-        with pytest.raises(NotImplementedError, match="M7"):
-            if entry == "analyze_library":
-                pipeline.analyze_library(
-                    scans["files"], cfg=cfg, batch_size=2, device="cpu",
-                    store=store, handle_sigint=False,
-                )
-            else:
-                result = pipeline.ScanResult(
-                    list(scans["files"]), np.full((len(scans["files"]), 4), np.nan, np.float32),
-                    np.zeros(len(scans["files"]), bool), {}, {},
-                )
-                pipeline._scan(
-                    result, iter([]), cfg=cfg, batch_size=2,
-                    device=torch.device("cpu"), timer=pipeline.StageTimer(),
-                )
-    assert len(store) == 0
+@pytest.mark.parametrize("change", list(M7_CHANGES), ids=list(M7_CHANGES))
+def test_an_unported_hybrid_config_is_refused_before_any_decode(scans, m7_refs, entry, change):
+    """A tempo_finish="host" config that takes the XLA-path stage (the
+    float64 config, the XLA path; refused until ROADMAP item M7) scans:
+    every row ok and bliss_tpu's (beats identical, float64 within 1e-5,
+    float32 within 5e-4), the store keyed by its config, and the longest
+    song, above ``long_song_samples``, analyzed whole (the streamed form
+    of these configs is M7b)."""
+    cfg = dataclasses.replace(AnalysisConfig.for_gpu_hybrid(), **M7_CHANGES[change])
+    assert not streaming.streaming_supports(cfg)
+    store = FeatureStore(str(scans["dir"] / f"m7_{entry}_{change}"))
+    files = scans["files"]
+    if entry == "analyze_library":
+        result = pipeline.analyze_library(
+            files, cfg=cfg, batch_size=2, device="cpu", store=store, handle_sigint=False,
+            long_song_samples=90_000,
+        )
+        assert len(store) == len(SONGS)
+        stats = result.stats
+    else:
+        result = pipeline.ScanResult(
+            list(files), np.full((len(files), 4), np.nan, np.float32),
+            np.zeros(len(files), bool), {}, {},
+        )
+        decoded = [None if i == BROKEN_AT else decode(f) for i, f in enumerate(files)]
+        timer = pipeline.StageTimer()
+        pipeline._scan(
+            result, enumerate(decoded), cfg=cfg, batch_size=2,
+            device=torch.device("cpu"), timer=timer, long_song_samples=90_000,
+        )
+        stats = timer.report()
+    assert max(decode(f).n_samples for f in files if f != files[BROKEN_AT]) > 90_000
+    ref = m7_refs[change]
+    assert result.ok.tolist() == ref.ok.tolist()
+    assert "streaming" not in stats and stats["device_dispatch"]["count"] == 4
+    got, want = result.features[result.ok], ref.features[ref.ok]
+    assert np.array_equal(got[:, 0], want[:, 0])  # beats
+    tol = 1e-5 if cfg.dtype == "float64" else 5e-4
+    np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=0, atol=tol)
 
 
 def test_scan_defaults_to_the_gpu(scans):

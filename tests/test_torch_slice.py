@@ -84,17 +84,44 @@ def test_analyze_pcm_entry_point(results):
     [
         JConfig(),
         JConfig.for_parity(),
-        # the hybrid's two kernels with the working-dtype device finish (M7);
-        # for_tpu_hybrid() itself runs (tests/test_torch_two_kernel.py)
+        # the hybrid's two kernels with the working-dtype device finish;
+        # for_tpu_hybrid() itself: tests/test_torch_two_kernel.py
         dataclasses.replace(JConfig.for_tpu_hybrid(), tempo_finish="device"),
     ],
     ids=["default", "parity", "hybrid"],
 )
 def test_unported_configs_raise(jcfg):
+    """The configs that were refused until ROADMAP item M7 run and match
+    ``analyze_batch_jit`` under the same config: the XLA-path stage
+    (``AnalysisConfig()``, ``for_parity()``) and the two kernels with the
+    float32 working-dtype finish. The float32 finish is held as
+    ``test_torch_modes.check_f32_finish`` says (beats flip only within its
+    own rounding, attack against the float64 finish)."""
+    from bliss_tpu.features import tempo as jtempo
+    from bliss_tpu.features.analyze import _fused_amp_and_energies
+    from bliss_tpu_torch.features.analyze import _device_stage
+    from bliss_tpu_torch.features.tempo import envelope_finish_device
+    from test_torch_modes import check_f32_finish, check_rows
+
     cfg = config_from_reference(dataclasses.asdict(jcfg))
     songs, durs = _songs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        analyze_batch(PCMBatch.from_arrays(songs[:1], durs[:1], device="cpu"), cfg)
+    jb = JBatch.from_arrays(songs, durs)
+    tb = PCMBatch.from_arrays(songs, durs, device="cpu")
+    port = analyze_batch(tb, cfg).numpy()
+    ref = np.asarray(analyze_batch_jit(jb, jcfg))
+    if jcfg.dtype == "float64":
+        check_rows(port, ref, jcfg)
+        return
+    np.testing.assert_allclose(port[:, 1:3], ref[:, 1:3], rtol=0, atol=1e-3)
+    pfa = _device_stage(tb, cfg)[2]
+    jfa = (_fused_amp_and_energies(jb, jcfg)[1] if jcfg.fused_kernel
+           else jtempo.band_energies(jb, jcfg))
+    _, _, paux = envelope_finish_device(pfa, tb.n_samples, tb.durations, cfg, return_aux=True)
+    _, _, jaux = jtempo.envelope_finish_device(jfa, jb.n_samples, jb.durations, jcfg,
+                                               return_aux=True)
+    fa64 = np.asarray(jtempo.band_energies(jb, JConfig(dtype="float64")))
+    check_f32_finish(paux, jaux, fa64, np.asarray(jb.n_samples), np.asarray(jb.durations),
+                     port[:, 3], ref[:, 3], str(jcfg.fused_kernel))
 
 
 def test_force_and_class_matches_jax(results):

@@ -231,7 +231,8 @@ def test_refusals(song, case):
     samples, dur = song
     cfg, kw = AnalysisConfig.for_gpu(), {}
     if case == "float64":
-        cfg, err, match = AnalysisConfig(dtype="float64", fused_kernel=True, tempo_finish="host"), NotImplementedError, "M7"
+        # an XLA-path config: its streamed form is ROADMAP item M7b
+        cfg, err, match = AnalysisConfig(dtype="float64", fused_kernel=True, tempo_finish="host"), NotImplementedError, "M7b"
     else:
         kw, err, match = {"chunk_samples": CH + 512}, ValueError, "multiple of 1024"
     with pytest.raises(err, match=match):

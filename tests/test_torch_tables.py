@@ -14,7 +14,7 @@ from bliss_tpu.config import AnalysisConfig as JConfig
 import bliss_tpu_torch.constants as tC
 import bliss_tpu_torch.constants_filterbanks as tFB
 from bliss_tpu_torch import tables as ttables
-from bliss_tpu_torch.config import AnalysisConfig, check_supported
+from bliss_tpu_torch.config import AnalysisConfig, check_supported, uses_kernels
 from bliss_tpu_torch.convert import (
     FLOAT64_TABLES,
     config_from_reference,
@@ -41,9 +41,11 @@ def test_constants_are_verbatim(pair):
 
 TABLE_CALLS = [
     ("smoothing_kernel_iterated", ()),
+    ("amplitude_weight_table", ()),
     ("amplitude_cdf_poly", ()),
     ("hann_window", ()),
     ("rdft_matrices", ()),
+    ("rdft_matrices", (True,)),
     ("bandpass_filterbank", (1, 17, "firwin")),
     ("bandpass_filterbank", (3, 17, "firwin")),
     ("bandpass_filterbank", (5, 17, "reference5")),
@@ -155,26 +157,37 @@ def test_config_validation_matches(kwargs):
 
 @pytest.mark.parametrize(
     "preset,item",
-    [("default", "M7"), ("for_parity", "M7"), ("hybrid_device_finish", "M7")],
+    [("default", "M7"), ("for_parity", "M7"), ("hybrid_device_finish", "M7"),
+     ("band_taps_161", "M7")],
 )
 def test_unported_configs_name_their_roadmap_item(preset, item):
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(_port(preset))
-    check_supported(AnalysisConfig.for_gpu())
-    check_supported(_port("reference5"))
-    # the two-kernel and hybrid configs run; the XLA-path modes do not
-    check_supported(_port("for_tpu_hybrid"))
-    check_supported(AnalysisConfig(fused_kernel=True, tempo_finish="device_exact"))
-    check_supported(AnalysisConfig(fused_kernel=True, fused_conv="exact", tempo_finish="host"))
-    with pytest.raises(NotImplementedError, match="M7"):
-        check_supported(AnalysisConfig(fused_kernel=False, tempo_finish="device_exact"))
+    """The configs that ROADMAP item ``item`` ported run: ``check_supported``
+    takes them, and each takes the route ``bliss_tpu``'s ``_use_fused``
+    gives it (the kernels for the fused float32 configs of at most 129
+    taps, the XLA-path stage otherwise); an unknown mode name is refused
+    with ValueError, as ``bliss_tpu`` refuses it at analysis time."""
+    assert item == "M7"
+    cfg = (AnalysisConfig(fused_kernel=True, band_taps=161) if preset == "band_taps_161"
+           else _port(preset))
+    check_supported(cfg)
+    assert uses_kernels(cfg) == (preset == "hybrid_device_finish")
+    for ok in (AnalysisConfig.for_gpu(), _port("reference5"), _port("for_tpu_hybrid"),
+               AnalysisConfig.for_parity()):
+        check_supported(ok)
+        assert uses_kernels(ok) == (ok.dtype == "float32")
+    assert AnalysisConfig.for_parity() == _port("for_parity")
+    for field in ("amplitude_mode", "spectrum_mode", "tempo_energy_mode", "iir_mode"):
+        with pytest.raises(ValueError, match=field):
+            check_supported(dataclasses.replace(cfg, **{field: "nope"}))
 
 
 def test_tables_from_numpy_takes_the_reference_tables():
     """Fed the arrays bliss_tpu built, the converter gives the same tensors
-    as the port's own cache."""
+    as the port's own cache: in the kernels' dtypes, and all in float64 for
+    the XLA-path stage."""
     _, _, c_pos = jtables.amplitude_cdf_poly()
     L, Z, M, N = jtables.iir_block_operator(256)
+    rdft_re, rdft_im = jtables.rdft_matrices(zero_nyquist=True)
     ref = {
         "cheb": c_pos,
         "fir": jtables.bandpass_filterbank(1, 17, "firwin"),
@@ -183,7 +196,15 @@ def test_tables_from_numpy_takes_the_reference_tables():
         "twiddle": fft_twiddles(),
         "hann": jtables.hann_window(),
         "iir_L": L, "iir_Z": Z, "iir_M": M, "iir_N": N,
+        "amp_table": jtables.amplitude_weight_table(),
+        "rdft_re": rdft_re, "rdft_im": rdft_im,
+        "alt": jtables.parseval_alt_sign(),
     }
+    wide = tables_from_numpy(ref, "cpu", torch.float64)
+    own64 = device_tables(1, 17, "firwin", "cpu", dtype=torch.float64)
+    for k, t in wide.items():
+        assert t.dtype == torch.float64 and torch.equal(t, own64[k]), k
+        assert np.array_equal(t.numpy(), np.asarray(ref[k], np.float64)), k
     got = tables_from_numpy(ref, "cpu")
     own = device_tables(1, 17, "firwin", "cpu")
     assert got.keys() == own.keys() == reference_arrays(1, 17, "firwin").keys()
