@@ -11,18 +11,24 @@ with the same commands, arguments and output):
   radio          — k-means auto-playlists over the library
   store          — feature-store stats / compact / export / prune /
                    neighbors / dupes
+  gui            — tkinter library scanner (the reference's GTK GUI)
+  doctor         — environment checks: native decoder, decode round trip,
+                   CUDA backend, device dispatch, store
+  serve          — the resident analysis daemon (JSON lines over a socket,
+                   and/or HTTP)
+  call           — send one JSON request to a running daemon
   version        — framework + native decoder versions
 
-Every command that analyzes or compares songs runs on ``--device`` (default
-``cuda``, env fallback ``BLISS_TPU_TORCH_DEVICE``); without a GPU such a
-command fails unless it is given ``--device cpu``, and never falls back to
-the CPU. ``--extended`` adds the 45 extended features to ``analyze``'s
+Every command that analyzes or compares songs, ``gui`` and ``serve`` run on
+``--device`` (default ``cuda``, env fallback ``BLISS_TPU_TORCH_DEVICE``);
+without a GPU such a command fails unless it is given ``--device cpu``, and
+never falls back to the CPU; ``doctor`` reports the device's checks as
+failed instead. ``--extended`` adds the 45 extended features to ``analyze``'s
 report, ``scan``'s CSV and store rows, and ``radio``'s clustering.
 ``--bands`` and ``--filterbank firwin|reference5|reference36`` select the
 tempo filterbank. ``--mesh`` (ROADMAP M10) and a config that
-``check_supported`` refuses exit with status 2 before any decode or store
-write. ``gui``, ``doctor``, ``serve`` and ``call`` are the rest of ROADMAP
-M11.
+``check_supported`` refuses exit with status 2 before any decode, store
+write or bind.
 
 Run: python -m bliss_tpu_torch.cli <command> ...
 """
@@ -514,6 +520,216 @@ def cmd_version(args) -> int:
     return 0
 
 
+def cmd_doctor(args) -> int:
+    """Diagnose the runtime environment: native build, decode round-trip,
+    CUDA backend acquisition and device dispatch latency on ``--device``
+    (each bounded by ``--timeout``: a wedged device must FAIL the check, not
+    hang the doctor), optional store health. Exit 0 iff every check
+    passes."""
+    import threading
+    import time
+
+    failures = 0
+
+    def check(name, fn, detail_fmt=str):
+        nonlocal failures
+        try:
+            detail = fn()
+        except Exception as e:  # noqa: BLE001 — each check reports its own
+            failures += 1
+            print(f"FAIL {name}: {type(e).__name__}: {e}")
+        else:
+            print(f"  ok {name}: {detail_fmt(detail)}")
+
+    def bounded(fn, seconds):
+        """Run fn on a side thread with a wall-clock bound."""
+        box = []
+
+        def run():
+            try:
+                box.append(("ok", fn()))
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                box.append(("err", e))
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(seconds)
+        if not box:
+            raise TimeoutError(
+                f"still blocked after {seconds:.0f}s (hung device?)"
+            )
+        kind, val = box[0]
+        if kind == "err":
+            raise val
+        return val
+
+    import bliss_tpu_torch
+
+    print(f"bliss-tpu-torch {bliss_tpu_torch.version()} (torch {torch.__version__},"
+          f" CUDA {torch.version.cuda})")
+
+    def _native():
+        from bliss_tpu_torch.io import native_version
+
+        return native_version()
+
+    check("native decoder build", _native)
+
+    def _roundtrip():
+        import tempfile
+
+        from bliss_tpu_torch.io import decode
+        from bliss_tpu_torch.io.flac_writer import write_flac
+
+        pcm = (np.random.RandomState(0).randn(22050, 2) * 3000).astype(
+            np.int16
+        )
+        with tempfile.TemporaryDirectory() as tmp:
+            p = os.path.join(tmp, "doctor.flac")
+            write_flac(p, pcm, 22050)
+            d = decode(p)
+        if d.sample_rate != 22050 or d.n_samples < 2 * 22050:
+            raise RuntimeError(
+                f"decode mismatch: rate={d.sample_rate} n={d.n_samples}"
+            )
+        return f"1s FLAC encode->decode ({d.n_samples} samples)"
+
+    check("decode round-trip", _roundtrip)
+
+    def _backend():
+        def acquire():
+            dev = resolve_device(args.device)
+            if dev.type != "cuda":
+                return f"{dev.type} (1 device(s))"
+            return (f"cuda ({torch.cuda.device_count()} device(s)); {dev}: "
+                    f"{torch.cuda.get_device_name(dev)}")
+
+        return bounded(acquire, args.timeout)
+
+    check("backend acquisition", _backend)
+
+    def _dispatch():
+        def once():
+            dev = resolve_device(args.device)
+            t0 = time.perf_counter()
+            x = torch.ones(1, dtype=torch.float32).to(dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if float(x.cpu()[0]) != 1.0:
+                raise RuntimeError("the round trip changed the value")
+            return f"host->{dev}->host in {(time.perf_counter() - t0) * 1e3:.1f} ms"
+
+        return bounded(once, args.timeout)
+
+    check("device dispatch", _dispatch)
+
+    if args.store:
+        def _store():
+            from bliss_tpu_torch.store import FeatureStore
+
+            store = FeatureStore(args.store)
+            return f"{len(store)} entr{'y' if len(store) == 1 else 'ies'}"
+
+        check("feature store", _store)
+
+    print("all checks passed" if not failures
+          else f"{failures} check(s) FAILED")
+    return 0 if not failures else 1
+
+
+def cmd_gui(args) -> int:
+    from bliss_tpu_torch.gui import main as gui_main
+
+    return gui_main(_device(args))
+
+
+def cmd_call(args) -> int:
+    import json
+    import socket as _socket
+
+    from bliss_tpu_torch.server import request
+
+    if (args.socket is None) == (args.port is None):
+        raise SystemExit("call: pass exactly one of --socket / --port")
+    raw = args.request
+    if raw is None or raw == "-":
+        raw = sys.stdin.read()
+    try:
+        req = json.loads(raw)
+    except ValueError as e:
+        raise SystemExit(f"call: request is not valid JSON: {e}")
+    try:
+        resp = request(
+            req, args.socket, port=args.port, timeout=args.timeout,
+            on_event=lambda e: print(json.dumps(e), file=sys.stderr),
+        )
+    except _socket.timeout:
+        raise SystemExit(
+            f"call: no response after {args.timeout:g}s — the daemon may "
+            "still be working (raise --timeout, or add \"progress\": true "
+            "to scan requests to keep the connection active)"
+        )
+    print(json.dumps(resp, indent=2, sort_keys=True))
+    return 0 if resp.get("ok") else 1
+
+
+def cmd_serve(args) -> int:
+    from bliss_tpu_torch.server import AnalysisServer
+    from bliss_tpu_torch.store import FeatureStore
+
+    if args.socket is not None and args.port is not None:
+        raise SystemExit("serve: pass at most one of --socket / --port")
+    if args.socket is None and args.port is None and args.http_port is None:
+        raise SystemExit("serve: pass --socket, --port, or --http-port")
+    device = _device(args)  # no GPU: stop before any store, warmup or bind
+    server = AnalysisServer(
+        args.socket,
+        port=args.port,
+        cfg=_band_config(args),
+        store=FeatureStore(args.store) if args.store else None,
+        batch_size=args.batch_size,
+        health_probe_interval=args.health_probe or None,
+        device=device,
+    )
+    if not args.no_warmup:
+        print("warming up (building and launching the kernels)...", file=sys.stderr)
+        server.warmup()
+    gateway = None
+    if args.http_port is not None:
+        from bliss_tpu_torch.http_gateway import HttpGateway
+
+        try:
+            gateway = HttpGateway(server, args.http_port)
+        except OSError as e:
+            raise SystemExit(f"serve: --http-port {args.http_port}: {e}")
+        gateway.start()
+        print(f"http on 127.0.0.1:{gateway.port}", file=sys.stderr)
+    if args.socket is None and args.port is None:
+        # HTTP-only: the gateway thread serves; block until shutdown
+        print("serving (Ctrl-C to stop)", file=sys.stderr)
+        try:
+            server.wait_stopped()
+        except KeyboardInterrupt:
+            pass
+        gateway.stop()
+        return 0
+    # bind before announcing so an ephemeral --port 0 prints the REAL port
+    try:
+        server.bind()
+    except RuntimeError as e:
+        raise SystemExit(f"serve: {e}")
+    where = args.socket or f"127.0.0.1:{server.port}"
+    print(f"serving on {where} (Ctrl-C to stop)", file=sys.stderr)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    finally:
+        if gateway is not None:
+            gateway.stop()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bliss-tpu-torch",
@@ -614,6 +830,72 @@ def build_parser() -> argparse.ArgumentParser:
     )
     st.add_argument("store", help="store directory")
     st.set_defaults(fn=cmd_store)
+
+    gu = sub.add_parser(
+        "gui", help="tkinter library scanner (the reference's GTK GUI)"
+    )
+    gu.set_defaults(fn=cmd_gui)
+
+    dr = sub.add_parser(
+        "doctor",
+        help="diagnose the environment: native build, decode round-trip, "
+        "bounded CUDA backend/dispatch probes on --device, store health",
+    )
+    dr.add_argument(
+        "--timeout", type=float, default=60.0,
+        help="seconds before a device probe is declared hung",
+    )
+    dr.add_argument("--store", default=None, help="also check this store")
+    dr.set_defaults(fn=cmd_doctor)
+
+    sv = sub.add_parser(
+        "serve",
+        help="persistent analysis daemon (JSON-lines over a socket) on --device",
+    )
+    sv.add_argument("--socket", help="Unix socket path to listen on")
+    sv.add_argument(
+        "--port", type=int,
+        help="loopback TCP port instead of a Unix socket (0 = ephemeral)",
+    )
+    sv.add_argument(
+        "--http-port", type=int,
+        help="also (or only) serve HTTP on this loopback port: POST / with "
+        "a request object, GET /ping /status /metrics (0 = ephemeral)",
+    )
+    sv.add_argument("--store", help="feature-store directory (cache)")
+    sv.add_argument("--batch-size", type=int, default=64)
+    sv.add_argument(
+        "--no-warmup", action="store_true",
+        help="skip the startup analysis of a synthetic clip (which builds the"
+        " CUDA kernels if needed and launches them once)",
+    )
+    sv.add_argument(
+        "--health-probe", type=float, default=0.0, metavar="SECONDS",
+        help="probe the device every SECONDS with a host->device->host round"
+        " trip: detects a lost or poisoned CUDA context and marks a degraded"
+        " daemon recovered without waiting for traffic (0 = off)",
+    )
+    _add_mesh_opt(sv)
+    _add_band_opts(sv)
+    sv.set_defaults(fn=cmd_serve)
+
+    cl = sub.add_parser(
+        "call",
+        help="send one JSON request to a running serve daemon",
+    )
+    cl.add_argument("--socket", help="daemon Unix socket path")
+    cl.add_argument("--port", type=int, help="daemon loopback TCP port")
+    cl.add_argument(
+        "--timeout", type=float, default=600.0,
+        help="seconds to wait for the response (a big scan without "
+        "progress events can exceed the default 600)",
+    )
+    cl.add_argument(
+        "request", nargs="?",
+        help="JSON request object ('-' or omitted = read from stdin), "
+        "e.g. '{\"op\": \"status\"}'",
+    )
+    cl.set_defaults(fn=cmd_call)
 
     v = sub.add_parser("version", help="print versions")
     v.set_defaults(fn=cmd_version)

@@ -1,14 +1,14 @@
-"""Per-stage wall and CPU timers (the ``StageTimer`` of
-``bliss_tpu/utils/profiling.py``, same stage names and ``report()`` keys).
-
-The JAX package's ``trace_annotation`` and ``device_trace`` wrap
-``jax.profiler`` and have no counterpart here; the port's device traces come
-from ``torch.profiler`` (``chip_smoke.device_trace``).
+"""Profiling hooks: per-stage wall timers and ``torch.profiler``
+(counterpart of ``bliss_tpu/utils/profiling.py``: ``StageTimer`` with the
+same stage names and ``report()`` keys; ``trace_annotation`` and
+``device_trace`` over ``torch.profiler`` where ``bliss_tpu``'s wrap
+``jax.profiler``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -47,3 +47,33 @@ class StageTimer:
             }
             for name in sorted(self.seconds)
         }
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    """Annotate a region in ``torch.profiler`` traces (a
+    ``record_function`` range; costs next to nothing with no profiler
+    running)."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Profile the block's CPU and, where a GPU is present, CUDA activity
+    with ``torch.profiler`` and write it as a Chrome trace
+    (``trace-<pid>-<ns>.json``) into ``log_dir``; yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+    )

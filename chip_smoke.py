@@ -124,7 +124,27 @@ Phases, one line each, stopping at the first failure:
    fft_strict and its rows against the CPU, the IIR blocked vs scan,
    band_taps=161 against the CPU), and the scan IIR's
    finish at L=2^23 timed once; (d) the CLI's ``analyze --filterbank
-   reference36`` through the prepass and K1.
+   reference36`` through the prepass and K1;
+13. the serving layer (M11: ``server.py``, ``http_gateway.py``, the CLI's
+   ``doctor``, ``gui.ScanJob``) in-process under ``for_gpu()``: (a) a
+   daemon's cold start (a fresh process, nvcc into an empty build
+   directory) and warm start (the libraries on disk), each warmup launching
+   the prepass and K1 once; the main batch's 64 songs and two of phase 9's
+   long songs written as FLAC files (decode and probe patched, and logged,
+   where libav's development files are missing); a daemon on a Unix socket
+   with a store: ``analyze`` of the 66 files through the prepass and K1
+   (rows as ``analyze_pcm``'s of the same PCM and phase 9's streamed rows:
+   beats identical, the rest within 1e-3), the same op from the store (no
+   launch, no decode), ``distance``, ``playlist`` and ``neighbors`` equal to
+   ``sim``'s on the same rows, 20 pings, 4 clients at once on disjoint
+   subsets; (b) an HTTP gateway on it: ``/status``, ``/metrics``, a
+   ``scan --extended`` streamed as chunked NDJSON progress, then
+   ``shutdown`` over HTTP stopping both transports; (c) the ``neighbors``
+   op over a 100 000-entry store (= ``nearest_neighbors_all`` over
+   ``similarity_rows``) beside the CLI's ``store neighbors``; (d) a health
+   probe every 0.5 s made to raise a CUDA error text: ``/metrics`` degraded,
+   then recovered once; (e) ``doctor --device cuda``; (f) ``ScanJob``
+   headless: its CSV rows are (a)'s force vectors.
 
 The last two lines of standard output are a JSON line of the kernels and
 their timings and the card's name and power limit; the very last line is
@@ -141,6 +161,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -753,8 +774,8 @@ def stream_phase(short, short_durs, short_rows, device, label) -> dict:
     counts the same beats. Prints the seconds a song of each route, the
     scan's songs/s and minutes of audio a second, its stages, the peak
     device memory while the mix streams, and a trace of one streamed song.
-    Runs on ``device``; returns each config's scan launches, and the long
-    songs and their durations."""
+    Runs on ``device``; returns each config's scan launches, the long songs,
+    their durations and their rows from the main scan."""
     from bliss_tpu_torch import AnalysisConfig, pipeline
     from bliss_tpu_torch.features import streaming
     from bliss_tpu_torch.io import DecodedAudio
@@ -881,7 +902,7 @@ def stream_phase(short, short_durs, short_rows, device, label) -> dict:
     log(f"streaming trace of the {LONG_MAX}-sample song (main): "
         f"{device_trace(lambda: streaming.analyze_song_streaming(songs[-2], durs[-2], main, device=device))} {label}")
     log(f"streaming (phase 9) took {time.perf_counter() - t0:.1f} s")
-    return launches, songs, durs
+    return launches, songs, durs, rows["main"]
 
 
 def libav_present() -> bool:
@@ -1981,6 +2002,486 @@ def xla_phase(arrays, durations, main_rows, main_fa, device, label) -> None:
     log(f"xla modes (phase 12) took {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 13: the serving layer (M11) ---------------------------------------
+
+SERVE_LONG = 2  # phase 9's long songs written beside the main batch's 64
+SERVE_CLIENTS = 4
+PING_N = 20
+
+# A daemon's start in a fresh process: build the CUDA libraries into
+# sys.argv[1] (empty: nvcc runs; already built: it does not), then warmup;
+# the CUDA context's creation is timed apart from the warmup that follows.
+WARMUP_CHILD = r"""
+import json, sys, time
+from pathlib import Path
+t0 = time.perf_counter()
+import torch
+from bliss_tpu_torch.kernels import _build, fused_all, fused_stats
+from bliss_tpu_torch.server import AnalysisServer
+_build.BUILD_DIR = Path(sys.argv[1])
+t1 = time.perf_counter()
+torch.ones(1, device="cuda").cpu()
+t2 = time.perf_counter()
+server = AnalysisServer(device="cuda")
+server.warmup()
+t3 = time.perf_counter()
+print(json.dumps({"import_s": t1 - t0, "context_s": t2 - t1, "warmup_s": t3 - t2,
+                  "nvcc_s": {k: v[0] for k, v in _build.BUILD_INFO.items()},
+                  "launches": [fused_stats.PREPASS_LAUNCHES, fused_all.LAUNCHES]}))
+"""
+
+
+def warmup_starts(label) -> str:
+    """Phase 13 (a)'s cold and warm daemon starts: ``WARMUP_CHILD`` twice in
+    fresh processes on one empty build directory, so the first builds the
+    CUDA libraries with nvcc and the second finds them on disk. Each must
+    launch the prepass and K1 once."""
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    runs = []
+    with tempfile.TemporaryDirectory() as build:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", WARMUP_CHILD, build], cwd=repo, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"the warmup child failed: {proc.stderr[-3000:]}")
+            runs.append({**json.loads(proc.stdout.splitlines()[-1]),
+                         "process_s": time.perf_counter() - t0})
+    cold, warm = runs
+    if cold["launches"] != [1, 1] or warm["launches"] != [1, 1] or "fused_all" not in cold["nvcc_s"] \
+            or warm["nvcc_s"]:
+        raise AssertionError(f"warmup starts: {runs}")
+    return (f"a daemon's start in a fresh process: cold, CUDA context {cold['context_s']:.3f} s then "
+            f"warmup {cold['warmup_s']:.3f} s (nvcc fused_all.cu {cold['nvcc_s']['fused_all']:.1f} s "
+            f"of it; process {cold['process_s']:.1f} s, imports {cold['import_s']:.1f} s); libraries "
+            f"on disk, context {warm['context_s']:.3f} s then warmup {warm['warmup_s']:.3f} s "
+            f"(process {warm['process_s']:.1f} s, imports {warm['import_s']:.1f} s); each warmup "
+            f"launched the prepass and K1 once {label}")
+
+
+def http_call(method, port, path, body=None, timeout=120):
+    """(status, body bytes, headers) of one request to the gateway on
+    127.0.0.1, through an opener that ignores any proxy setting."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=None if body is None else json.dumps(body).encode())
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def serve_socket_part(sock, files, ref, decodes, device, label) -> tuple[np.ndarray, dict]:
+    """Phase 13 (a) over the socket: ``analyze`` of every file (the prepass
+    and K1 only; rows within the gates of ``ref``), the same op again (from
+    the store: no launch, no decode), ``distance``, ``playlist`` and
+    ``neighbors`` against the port's ``sim`` on the same vectors, pings and
+    SERVE_CLIENTS clients on disjoint subsets. Returns the rows and the
+    first op's launches."""
+    from bliss_tpu_torch.server import request
+    from bliss_tpu_torch.sim import cosine_similarity, distance, nearest_neighbors_all, playlist_order
+
+    n = len(files)
+    reset_counts()
+    decodes["n"] = 0
+    t0 = time.perf_counter()
+    r = request({"op": "analyze", "paths": files}, sock, timeout=600)
+    cold_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if not r["ok"] or r["errors"] or list(r["features"]) != files or decodes["n"] != n:
+        raise AssertionError(f"serve (a) analyze: ok {r['ok']}, errors {r.get('errors')}, "
+                             f"{len(r.get('features', {}))} rows, {decodes['n']} decodes")
+    if not (launches["prepass"] and launches["fused_all"]) or launches["fused_stats"] or launches["stft_power"]:
+        raise AssertionError(f"serve (a) analyze launched {launches}; want the prepass and K1 only")
+    feats = np.array([r["features"][p] for p in files], np.float32)
+    errs = {what: same_scores(f"serve (a) analyze, {what} songs", feats[rows], want, source)
+            for what, rows, want, source in ref}
+    reset_counts()
+    decodes["n"] = 0
+    t0 = time.perf_counter()
+    again = request({"op": "analyze", "paths": files}, sock, timeout=600)
+    warm_s = time.perf_counter() - t0
+    if again != r or any(launch_counts().values()) or decodes["n"]:
+        raise AssertionError(f"serve (a) the repeat: same answer {again == r}, launches "
+                             f"{launch_counts()}, decodes {decodes['n']}")
+
+    va, vb = torch.from_numpy(feats[0]), torch.from_numpy(feats[1])
+    dist = request({"op": "distance", "a": files[0], "b": files[1]}, sock, timeout=120)
+    if (dist["distance"], dist["similarity"]) != (float(distance(va, vb)), float(cosine_similarity(va, vb))):
+        raise AssertionError(f"serve (a) distance {dist} against sim on the same rows")
+    pl = request({"op": "playlist", "seed": files[0], "paths": files}, sock, timeout=120)
+    order = playlist_order(feats, 0, device=device).cpu().numpy()
+    if pl["paths"] != [files[i] for i in order]:
+        raise AssertionError("serve (a) playlist is not playlist_order of the same rows")
+    nb = request({"op": "neighbors", "top_k": 5}, sock, timeout=120)
+    names = sorted(files)
+    nd, ni = (x.cpu().numpy() for x in nearest_neighbors_all(
+        feats[[files.index(p) for p in names]], 5, device=device))
+    if nb["neighbors"] != {p: [{"path": names[ni[i, j]], "distance": float(nd[i, j])} for j in range(5)]
+                           for i, p in enumerate(names)}:
+        raise AssertionError("serve (a) neighbors is not nearest_neighbors_all of the same rows")
+
+    pings = []
+    for _ in range(PING_N):
+        t0 = time.perf_counter()
+        if not request({"op": "ping"}, sock, timeout=30)["pong"]:
+            raise AssertionError("serve (a) ping")
+        pings.append((time.perf_counter() - t0) * 1e3)
+    answers = {}
+
+    def client(k):
+        answers[k] = request({"op": "analyze", "paths": files[k::SERVE_CLIENTS], "id": k}, sock,
+                             timeout=600)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    clients_s = time.perf_counter() - t0
+    for k in range(SERVE_CLIENTS):
+        got = answers.get(k, {})
+        if not got.get("ok") or got["id"] != k or got["features"] != {
+                p: r["features"][p] for p in files[k::SERVE_CLIENTS]}:
+            raise AssertionError(f"serve (a) client {k} of {SERVE_CLIENTS} differs from the single client")
+    log(f"serve (a) analyze of {n} files over the socket: cold store {cold_s:.3f} s = "
+        f"{n / cold_s:.1f} songs/s (launches {launches}; "
+        + "; ".join(f"{w} rows vs {s}: beats identical, max |diff| {e.max():.2e}"
+                    for (w, _, _, s), e in zip(ref, errs.values()))
+        + f"), warm store {warm_s:.3f} s = {n / warm_s:.1f} songs/s (no launch, no decode); distance, "
+        f"playlist and neighbors (top_k 5) equal sim's on the same rows; ping round trip median of "
+        f"{PING_N} {statistics.median(pings):.3f} ms (least {min(pings):.3f}, most {max(pings):.3f}); "
+        f"{SERVE_CLIENTS} clients at once on disjoint subsets {clients_s:.3f} s, answers the single "
+        f"client's {label}")
+    return feats, launches
+
+
+def serve_http_part(gw, lib, n, long_songs, device, label) -> None:
+    """Phase 13 (b): the gateway on the same server: ``/status`` (the card),
+    ``/metrics``, and ``scan --extended`` with progress as chunked NDJSON,
+    re-analyzing every file through the prepass and K1 (the store holds
+    4-column rows): one event a batch and a long song, the last at n of n."""
+    code, body, _ = http_call("GET", gw.port, "/status")
+    st = json.loads(body)
+    if code != 200 or st["backend"] != torch.device(device).type or st["devices"] != (
+            torch.cuda.device_count() if st["backend"] == "cuda" else 1):
+        raise AssertionError(f"serve (b) /status: {code} {st}")
+    code, body, _ = http_call("GET", gw.port, "/metrics")
+    metrics = body.decode()
+    if code != 200 or "bliss_backend_healthy 1" not in metrics or f"bliss_store_entries {n}" not in metrics:
+        raise AssertionError(f"serve (b) /metrics: {code} {metrics}")
+    reset_counts()
+    t0 = time.perf_counter()
+    code, body, hdrs = http_call("POST", gw.port, "/", {"op": "scan", "dir": lib, "extended": True,
+                                                        "progress": True, "id": "scan"}, timeout=600)
+    scan_s = time.perf_counter() - t0
+    launches = launch_counts()
+    lines = [json.loads(x) for x in body.splitlines() if x.strip()]
+    final, events = lines[-1], lines[:-1]
+    if code != 200 or hdrs.get("Content-Type") != "application/x-ndjson" or "Content-Length" in hdrs:
+        raise AssertionError(f"serve (b) scan: HTTP {code}, headers {hdrs}")
+    if not final.get("ok") or final["files"] != n or final["analyzed"] != n or final["errors"]:
+        raise AssertionError(f"serve (b) scan's last line: {final}")
+    if not events or any(e["event"] != "progress" or e["id"] != "scan" for e in events) \
+            or (events[-1]["done"], events[-1]["total"]) != (n, n) or len(events) < 1 + long_songs:
+        raise AssertionError(f"serve (b) scan's progress events: {events}")
+    if not (launches["prepass"] and launches["fused_all"]) or launches["fused_stats"] or launches["stft_power"]:
+        raise AssertionError(f"serve (b) scan launched {launches}; want the prepass and K1 only")
+    log(f"serve (b) HTTP: /status backend {st['backend']} devices {st['devices']}, /metrics healthy; "
+        f"scan --extended with progress as chunked NDJSON {scan_s:.3f} s: {len(events)} progress "
+        f"events, the last {n} of {n}, then ok with {final['analyzed']} analyzed; launches {launches}; "
+        f"{final['stats']['decoded']} decoded, {final['stats']['scan_process_cpu_seconds']} s of "
+        f"process cpu {label}")
+
+
+def serve_store_part(vectors, device, label) -> None:
+    """Phase 13 (c): the ``neighbors`` op of a daemon over phase 10 (b)'s
+    100 000-entry store, held to ``nearest_neighbors_all`` over
+    ``similarity_rows``, beside the CLI's ``store neighbors`` on the same
+    store."""
+    import tempfile
+
+    from bliss_tpu_torch.server import AnalysisServer, request
+    from bliss_tpu_torch.sim import nearest_neighbors_all
+    from bliss_tpu_torch.store import FeatureStore, similarity_rows
+
+    f, pairs = sim_library(vectors, SIM_N, 4, SIM_DUPES, np.random.default_rng(SEED + 7))
+    names = [f"lib/song{i:06d}.flac" for i in range(SIM_N)]
+    for j, c in enumerate(pairs[:, 1]):
+        names[c] = f"dupes/copy{j:04d}.flac"
+    with tempfile.TemporaryDirectory() as d:
+        path, sock = os.path.join(d, "store"), os.path.join(d, "s.sock")
+        t0 = time.perf_counter()
+        store = FeatureStore(path)
+        for i, (name, v) in enumerate(zip(names, f)):
+            store.put(f"k{i:06d}", v, {"filename": name})
+        store.flush()
+        fill_s = time.perf_counter() - t0
+        server = AnalysisServer(sock, store=FeatureStore(path), device=device)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            if not server.wait_ready(30):
+                raise AssertionError("serve (c): the daemon did not bind")
+            reset_peak(device)
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                r = request({"op": "neighbors", "top_k": SIM_K}, sock, timeout=600)
+                times.append(time.perf_counter() - t0)
+            mem = peak_text(device)
+        finally:
+            server.stop()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("serve (c): the daemon did not stop")
+        snames, feats = similarity_rows(FeatureStore(path))
+        dist, idx = (x.cpu().numpy() for x in nearest_neighbors_all(feats, SIM_K, device=device))
+        want = {n: [{"path": snames[idx[i, j]], "distance": float(dist[i, j])} for j in range(SIM_K)]
+                for i, n in enumerate(snames)}
+        if not r["ok"] or r["neighbors"] != want:
+            raise AssertionError("serve (c) neighbors differs from nearest_neighbors_all over "
+                                 "similarity_rows")
+        _, cli_s = run_cli(["--device", str(device), "store", "neighbors", "--top-k", str(SIM_K),
+                            path, "-o", os.path.join(d, "n.csv")])
+    log(f"serve (c) the daemon's neighbors op (top_k {SIM_K}) over a {SIM_N}-entry store (filled in "
+        f"{fill_s:.2f} s): {times[0]:.3f} s, again {times[1]:.3f} s, request to parsed answer "
+        f"(= nearest_neighbors_all over similarity_rows; {mem}); the CLI's store neighbors on the "
+        f"same store {cli_s:.3f} s {label}")
+
+
+def serve_health_part(device, label) -> None:
+    """Phase 13 (d): a daemon probing the device every 0.5 s; its probe made
+    to raise a CUDA error text flips ``/metrics`` to
+    ``bliss_backend_healthy 0``, and restored, the daemon recovers once."""
+    from bliss_tpu_torch.http_gateway import HttpGateway
+    from bliss_tpu_torch.server import AnalysisServer
+
+    server = AnalysisServer(device=device, health_probe_interval=0.5)
+    gw = HttpGateway(server, port=0)
+    gw.start()
+
+    def lost():
+        raise torch.AcceleratorError("CUDA error: an illegal memory access was encountered")
+
+    def wait_for(*lines):
+        deadline = time.perf_counter() + 15
+        while time.perf_counter() < deadline:
+            text = http_call("GET", gw.port, "/metrics")[1].decode()
+            if all(x in text for x in lines):
+                return time.perf_counter()
+            time.sleep(0.05)
+        raise AssertionError(f"serve (d): /metrics never showed {lines}: {text}")
+
+    try:
+        wait_for("bliss_backend_healthy 1")
+        t0 = time.perf_counter()
+        server._probe_op = lost
+        down = wait_for("bliss_backend_healthy 0") - t0
+        st = json.loads(http_call("GET", gw.port, "/status")[1])["backend_health"]
+        del server._probe_op
+        t0 = time.perf_counter()
+        up = wait_for("bliss_backend_healthy 1", "bliss_backend_recoveries_total 1") - t0
+    finally:
+        gw.stop()
+    if "illegal memory access" not in st["last_error"]:
+        raise AssertionError(f"serve (d): /status while degraded: {st}")
+    log(f"serve (d) health probe every 0.5 s: a probe raising a CUDA error text showed as "
+        f"bliss_backend_healthy 0 after {down:.2f} s; restored, healthy again with recoveries 1 "
+        f"after {up:.2f} s {label}")
+
+
+def serve_doctor_part(device, real_decode, label) -> None:
+    """Phase 13 (e): ``doctor`` on the card: the backend and dispatch checks
+    pass, the decoder's pass exactly where libav's development files are
+    present."""
+    import contextlib
+    import io
+
+    from bliss_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--device", str(device), "doctor", "--timeout", "60"])
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    want = {"backend acquisition": True, "device dispatch": True,
+            "native decoder build": real_decode, "decode round-trip": real_decode}
+    got = {name: f"  ok {name}:" in out for name in want}
+    if got != want or rc != (0 if real_decode else 1):
+        raise AssertionError(f"serve (e) doctor returned {rc}: {out}")
+    for line in out.splitlines():
+        log(f"serve (e) doctor | {line[:300]}")
+    log(f"serve (e) doctor --device {device}: exit {rc} in {secs:.2f} s; backend and dispatch ok, "
+        f"decode checks {'ok' if real_decode else 'failed: no libav development files here'} {label}")
+
+
+def serve_gui_part(lib, files, feats, device, label) -> None:
+    """Phase 13 (f): ``ScanJob`` headless over (a)'s files at B=64: its CSV
+    rows (the reference's column order) are (a)'s force vectors."""
+    import csv
+    import tempfile
+
+    from bliss_tpu_torch import gui
+
+    done = []
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "gui.csv")
+        job = gui.ScanJob(lib, out, batch_size=MAIN_B, device=device,
+                          on_done=lambda rows, cancelled: done.append((rows, cancelled)))
+        t0 = time.perf_counter()
+        rows = job.run()
+        secs = time.perf_counter() - t0
+        with open(out, newline="") as fh:
+            data = list(csv.reader(fh, **gui.CSV_DIALECT))
+    if rows != len(files) or done != [(len(files), False)] or [r[0] for r in data] != files:
+        raise AssertionError(f"serve (f) ScanJob: {rows} rows, done {done}")
+    got = np.array([[float(r[3]), float(r[4]), float(r[5]), float(r[2])] for r in data], np.float32)
+    if not np.array_equal(got, feats) or {r[1] for r in data} != {"phase 13"}:
+        raise AssertionError(f"serve (f) ScanJob's CSV differs from (a)'s rows by "
+                             f"{np.abs(got - feats).max():.3e}")
+    log(f"serve (f) ScanJob headless at B={MAIN_B}: {rows} CSV rows in {secs:.3f} s, equal to (a)'s "
+        f"force vectors {label}")
+
+
+def serve_phase(arrays, durations, long_pcm, long_durs, long_rows, vectors, device, label) -> dict:
+    """Phase 13: the serving layer (M11) in-process on ``device`` under
+    ``for_gpu()``: (a) the main batch's 64 songs and SERVE_LONG of phase 9's
+    long songs written as FLAC files, a daemon's cold and warm starts
+    (``warmup_starts``), then a daemon on a Unix socket with a store
+    (``serve_socket_part``); (b) an HTTP gateway on it
+    (``serve_http_part``), whose ``shutdown`` stops both transports; (c)
+    ``serve_store_part``; (d) ``serve_health_part``; (e)
+    ``serve_doctor_part``; (f) ``serve_gui_part``. Where libav's
+    development files are missing, ``pipeline.iter_decode`` and the probe
+    are patched (and say so) to yield the PCM and tags each file was
+    written from; the device path is not patched. Returns (a)'s
+    launches."""
+    import contextlib
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from bliss_tpu_torch import AnalysisConfig, api, pipeline
+    from bliss_tpu_torch.http_gateway import HttpGateway
+    from bliss_tpu_torch.io import AudioProbe, DecodedAudio, decode, decoder
+    from bliss_tpu_torch.io.flac_writer import write_flac
+    from bliss_tpu_torch.server import AnalysisServer
+    from bliss_tpu_torch.store import FeatureStore
+
+    t_phase = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        log(f"serve (a) {warmup_starts(label)}")
+    else:
+        log("serve (a) a daemon's start in a fresh process: not measured (no card)")
+    # a stereo file holds whole frames: a song of odd length gains one
+    # silent sample, and that is the PCM both the daemon and its yardstick read
+    songs = [s if s.shape[0] % 2 == 0 else np.append(s, np.int16(0))
+             for s in list(arrays) + list(long_pcm)]
+    durs = list(durations) + list(long_durs)
+    n_short = len(arrays)
+    real_decode = libav_present()
+    with tempfile.TemporaryDirectory() as d:
+        lib = os.path.join(d, "lib")
+        os.makedirs(lib)
+        files = [os.path.join(lib, f"song{i:02d}.flac") for i in range(len(songs))]
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+            list(pool.map(write_flac, files, [s.reshape(-1, 2) for s in songs], [SR] * len(songs),
+                          [{"TITLE": f"song {i}", "ALBUM": "phase 13"} for i in range(len(songs))]))
+        write_s = time.perf_counter() - t0
+        if real_decode:
+            pcm = {p: decode(p) for p in files}
+        else:
+            pcm = {p: DecodedAudio(s, 2, SR, 0, 2, 0, dur, p, "", f"song {i}", "phase 13", "", "")
+                   for i, (p, s, dur) in enumerate(zip(files, songs, durs))}
+        real_iter_decode = pipeline.iter_decode
+        decodes = {"n": 0}
+
+        def counted_iter_decode(paths, **kw):
+            paths = list(paths)
+            decodes["n"] += len(paths)
+            if real_decode:
+                return real_iter_decode(paths, **kw)
+            return ((p, pcm[p]) for p in paths)
+
+        def fake_probe(path):
+            x = pcm[path]
+            return AudioProbe(2, SR, 0, 2, 0, x.duration, path, "", x.title, x.album, "", "")
+
+        patches = [mock.patch.object(pipeline, "iter_decode", counted_iter_decode)]
+        if not real_decode:
+            log("serve (a): no libav development files here, so pipeline.iter_decode and the "
+                "decoder's probe are patched in this phase to yield the PCM and tags each FLAC "
+                "file was written from; the device path is not patched")
+            patches.append(mock.patch.object(decoder, "probe", fake_probe))
+        cfg = AnalysisConfig.for_gpu()
+        short = [pcm[p] for p in files[:n_short]]
+        ref_short = api.analyze_pcm([x.samples for x in short], [x.duration for x in short],
+                                    device=device)
+        if real_decode:
+            long_ref = stream_rows([pcm[p].samples for p in files[n_short:]], long_durs, cfg,
+                                   1 << 22, device)[0]
+            long_src = "analyze_song_streaming of the decoded PCM"
+        else:
+            long_ref, long_src = long_rows, "phase 9's streamed rows"
+        ref = [("short", slice(0, n_short), ref_short, "analyze_pcm of the same PCM"),
+               ("long", slice(n_short, None), long_ref, long_src)]
+        sock = os.path.join(d, "s.sock")
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            reset_peak(device)
+            server = AnalysisServer(sock, cfg=cfg, store=FeatureStore(os.path.join(d, "store")),
+                                    batch_size=MAIN_B, device=device)
+            reset_counts()
+            t0 = time.perf_counter()
+            server.warmup()
+            warm_s = time.perf_counter() - t0
+            warm_launches = launch_counts()
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            gw = HttpGateway(server, port=0)
+            gw.start()
+            try:
+                if not server.wait_ready(30):
+                    raise AssertionError("serve (a): the daemon did not bind")
+                log(f"serve (a) {len(files)} FLAC files ({n_short} of the main batch, {len(long_pcm)} "
+                    f"long) written in {write_s:.1f} s; decode {'real' if real_decode else 'patched'}; "
+                    f"the daemon's warmup in this process (libraries loaded) {warm_s:.3f} s, "
+                    f"launches {warm_launches}")
+                feats, launches = serve_socket_part(sock, files, ref, decodes, device, label)
+                serve_http_part(gw, lib, len(files), len(long_pcm), device, label)
+                code, body, _ = http_call("POST", gw.port, "/", {"op": "shutdown"})
+                if code != 200 or not json.loads(body)["stopping"] or not server.wait_stopped(30):
+                    raise AssertionError(f"serve (b) shutdown over HTTP: {code} {body[:200]}")
+                thread.join(timeout=30)
+                gw._thread.join(timeout=30)
+                if thread.is_alive() or gw._thread.is_alive() or os.path.exists(sock):
+                    raise AssertionError("serve (b) shutdown did not stop both transports")
+                mem = peak_text(device)
+            finally:
+                gw.stop()
+                thread.join(timeout=30)
+            log(f"serve (b) shutdown over HTTP stopped both transports; (a) and (b) {mem} {label}")
+            serve_gui_part(lib, files, feats, device, label)
+    serve_store_part(vectors, device, label)
+    serve_health_part(device, label)
+    serve_doctor_part(device, real_decode, label)
+    log(f"serve (phase 13) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -2233,7 +2734,7 @@ def main() -> int:
             "native decoder cannot be built here; file decode is checked on the CPU only")
 
     # 9. long songs streamed, with the main batch's songs among them
-    stream_launches, long_pcm, long_durs = stream_phase(
+    stream_launches, long_pcm, long_durs, long_rows = stream_phase(
         arrays, durations, {"main": out, "hybrid": outh}, "cuda", label)
 
     # 11. the extended features, before phase 10, whose D = 49 library takes
@@ -2243,6 +2744,7 @@ def main() -> int:
         batch, {"main": out, "two_kernel": out2, "hybrid": outh},
         {"main": cfg, "two_kernel": two, "hybrid": hyb}, label)
     extended_stream_part(long_pcm, long_durs, "cuda", label)
+    serve_long = (long_pcm[:SERVE_LONG], long_durs[:SERVE_LONG], long_rows[:SERVE_LONG])
     del long_pcm
     songs = list(arrays) + [a[::-1].copy() for a in arrays] + [
         np.roll(a, a.shape[0] // 3) for a in arrays]
@@ -2260,6 +2762,9 @@ def main() -> int:
     del batch
     xla_phase(arrays, durations, out, main_fa, "cuda", label)
     del main_fa
+
+    # 13. the serving layer: the daemon, its HTTP gateway, doctor and the GUI
+    serve_launches = serve_phase(arrays, durations, *serve_long, out, "cuda", label)
 
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():
@@ -2318,6 +2823,7 @@ def main() -> int:
             e["stream_launches"] = {k: v[e["name"]] for k, v in stream_launches.items()}
             e["cli_scan_launches"] = cli_launches[e["name"]]
             e["extended_launches"] = {k: v[e["name"]] for k, v in ext_launches.items()}
+            e["serve_launches"] = serve_launches[e["name"]]
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -380,3 +380,50 @@ def test_kmeans_on_gpu_matches_cpu_lloyd_from_the_same_init(cuda):
     cc = lloyd(torch.from_numpy(f), start.cpu(), iters=30)
     assert (c.cpu() - cc).abs().max() <= 1e-5 * cc.abs().max()
     assert torch.equal(a.cpu(), assign(torch.from_numpy(f), cc))
+
+
+def test_daemon_on_gpu_analyzes_through_the_kernels(cuda, tmp_path, monkeypatch):
+    """The daemon on the card: warmup launches the prepass and K1, an
+    analyze op over a socket launches them again and gives analyze_pcm's
+    rows, and status names the card. The card's machine has no libav, so
+    the written FLAC files are 'decoded' to the PCM they were written
+    from."""
+    import threading
+
+    from bliss_tpu_torch import api, pipeline
+    from bliss_tpu_torch.io import DecodedAudio
+    from bliss_tpu_torch.io.flac_writer import write_flac
+    from bliss_tpu_torch.server import AnalysisServer, request
+
+    songs, durs = _songs()
+    files = [str(tmp_path / f"song{i}.flac") for i in range(len(songs))]
+    pcm = {}
+    for f, s, d in zip(files, songs, durs):
+        write_flac(f, s.reshape(-1, 2), 22050)
+        pcm[f] = DecodedAudio(s, 2, 22050, 0, 2, 0, d, f, "", "", "", "", "")
+    monkeypatch.setattr(pipeline, "iter_decode", lambda paths, **kw: ((p, pcm[p]) for p in paths))
+    buckets = len({pipeline._bucket_length(s.shape[0], 1024) for s in songs})  # a batch each
+    sock = str(tmp_path / "s.sock")
+    server = AnalysisServer(sock, batch_size=2, device=cuda)
+    before = (fused_stats.PREPASS_LAUNCHES, fused_all.LAUNCHES)
+    server.warmup(seconds=1.0)
+    assert fused_stats.PREPASS_LAUNCHES == before[0] + 1 and fused_all.LAUNCHES == before[1] + 1
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    assert server.wait_ready(30)
+    try:
+        r = request({"op": "analyze", "paths": files}, sock, timeout=120)
+        assert r["ok"] and r["errors"] == {}
+        assert fused_stats.PREPASS_LAUNCHES == before[0] + 1 + buckets
+        assert fused_all.LAUNCHES == before[1] + 1 + buckets
+        got = np.array([r["features"][f] for f in files], np.float32)
+        ref = api.analyze_pcm(songs, durs, device=cuda)
+        assert np.array_equal(got[:, 0], ref[:, 0])
+        np.testing.assert_allclose(got[:, 1:], ref[:, 1:], rtol=0, atol=1e-3)
+        st = request({"op": "status"}, sock, timeout=30)
+        assert st["backend"] == "cuda" and st["devices"] == torch.cuda.device_count()
+        assert st["backend_health"]["healthy"]
+    finally:
+        server.stop()
+        t.join(timeout=30)
+    assert not t.is_alive()

@@ -13,7 +13,8 @@ half of ``features/tempo.py``, ``dsp/framing.py``, ``dsp/iir.lfilter_scan``)
 under ``AnalysisConfig()`` and ``for_parity()`` and the three ``Song``
 analyzer methods, and runs the similarity (``kmeans``,
 ``nearest_neighbors_all``) and the port's CLI (``store neighbors`` on a
-small store)."""
+small store), and imports the serving layer (``server``, ``http_gateway``,
+``gui``, ``utils.debug``) and answers a status request."""
 
 import os
 import subprocess
@@ -121,6 +122,12 @@ with tempfile.TemporaryDirectory() as d:
     assert said.getvalue().startswith("wrote 6 x top-5 neighbors"), said.getvalue()
     with open(f"{d}/n.csv") as f:
         assert len(f.read().splitlines()) == 7
+from bliss_tpu_torch import gui, http_gateway, server
+from bliss_tpu_torch.utils import debug
+srv = server.AnalysisServer(device="cpu")
+st = srv._handle_line(b'{"op": "status"}')
+assert st["ok"] and st["backend"] == "cpu" and st["devices"] == 1, st
+assert http_gateway.HttpGateway and gui.ScanJob and debug.nan_debugging
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())
