@@ -201,8 +201,8 @@ class Song(Mapping):
         returns the LOUD/CALM/UNKNOWN class (reference: src/analyze.c:33-80).
 
         A song longer than ``LONG_SONG_SAMPLES`` is streamed
-        (``features/streaming.py``) where the config streams
-        (``streaming.streaming_supports``), as the pipeline does."""
+        (``features/streaming.py``; ``streaming.streaming_supports`` holds
+        for every config), as the pipeline does."""
         if filename is not None:
             self.filename = filename
             self.sample_array = None
@@ -256,8 +256,8 @@ class Song(Mapping):
         the Song's). The band energies and the beat aux come from the
         config's own device stage and envelope finish (``bliss_tpu`` takes
         its band energies from its XLA path whatever the config); a song
-        longer than ``LONG_SONG_SAMPLES`` is streamed where the config
-        streams, as ``analyze`` does."""
+        longer than ``LONG_SONG_SAMPLES`` is streamed, as ``analyze``
+        does."""
         device = resolve_device(device or self.device)
         cfg = cfg or default_config()
         if self.sample_array is None:

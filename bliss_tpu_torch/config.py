@@ -176,9 +176,9 @@ def uses_kernels(cfg: AnalysisConfig) -> bool:
 def check_supported(cfg: AnalysisConfig) -> None:
     """Raise ValueError for a mode name ``bliss_tpu`` does not know either
     (it raises when it meets one at analysis time; the port raises before
-    any decode). Every single-device config ``bliss_tpu`` runs is run here:
-    the mesh is ROADMAP item M10, and the streamed form of an XLA-path
-    config is M7b (``features/streaming.analyze_song_streaming``)."""
+    any decode). Every single-device config ``bliss_tpu`` runs is run here,
+    whole and streamed (``features/streaming.analyze_song_streaming``); the
+    mesh is ROADMAP item M10."""
     for field, names in MODES.items():
         if getattr(cfg, field) not in names:
             raise ValueError(

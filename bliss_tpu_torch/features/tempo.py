@@ -8,7 +8,8 @@ variance, not the std), 512-sample windows at hop 256, per window a causal
 FIR with zero state at its start, then the window's summed power spectrum
 (reference: src/tempo_atk_sort.c:42-152), in ``tempo_energy_mode``:
 "parseval" (no window tensor: the global convolution, per-block sums and
-the warm-up corrections of ``tables.fir_warmup_correction``),
+the warm-up corrections of ``tables.fir_warmup_correction``, each energy
+clamped at zero, F7),
 "parseval_framed" (the explicit windows), "fft" and "fft_strict" (the
 literal spectrum, the latter summed in the reference's float32 order).
 
@@ -56,17 +57,24 @@ from bliss_tpu_torch.features.types import PCMBatch, row_blocks
 from bliss_tpu_torch.kernels import fused_stats as fs
 
 
-def _normalize_signal(s, n, sums, dtype):
-    """The zero-mean, divided-by-variance rows of ``s`` int16 [b, L] in
-    ``dtype``, zero past each row's ``n`` (reference :101-114), from the
-    prepass's exact int64 sums: the C int32-wrapping mean and the exact
-    integer variance (``fused_stats.moments``; the JAX package's float32
-    configs take a truncated float32 sum instead, F4)."""
-    mean, var = fs.moments(*sums, n)
+def normalized(s, mean, var, dtype):
+    """(s/2^15 - mean/2^15) / (var/2^30) of the int16 rows ``s`` [b, L] in
+    ``dtype``, from each row's C mean and exact integer variance [b]
+    (``fused_stats.moments``), the variance cast to ``dtype`` (reference
+    :101-114)."""
     inv = 1.0 / (1 << 15)
     mean_d = mean.to(dtype) * inv
     var_d = var.to(dtype) * inv * inv
-    norm = (s.to(dtype) * inv - mean_d[:, None]) / var_d[:, None]
+    return (s.to(dtype) * inv - mean_d[:, None]) / var_d[:, None]
+
+
+def _normalize_signal(s, n, sums, dtype):
+    """The zero-mean, divided-by-variance rows of ``s`` int16 [b, L] in
+    ``dtype``, zero past each row's ``n``, from the prepass's exact int64
+    sums: the C int32-wrapping mean and the exact integer variance
+    (``fused_stats.moments``; the JAX package's float32 configs take a
+    truncated float32 sum instead, F4)."""
+    norm = normalized(s, *fs.moments(*sums, n), dtype)
     valid = torch.arange(s.shape[1], device=s.device)[None, :] < n[:, None]
     return torch.where(valid, norm, torch.zeros_like(norm))
 
@@ -81,8 +89,10 @@ def _fir(x, coeffs, K: int, length: int):
     return y
 
 
-def _window_energy_blocked(norm, fb, tabs):
-    """Per-window spectral energies [b, NB, NW] without the overlapped
+def _window_energy_blocked(xp, fb, tabs):
+    """Per-window spectral energies [b, NB, NW] of the normalized rows
+    ``xp`` [b, K + L], whose first K = taps - 1 samples are the history
+    before the rows (zeros before a song's start), without the overlapped
     window tensor:
 
     - Parseval: sum_{k=0..W/2} |DFT(y)_k|^2 = (W/2)*sum(y^2)
@@ -93,13 +103,12 @@ def _window_energy_blocked(norm, fb, tabs):
 
     So the stage is one convolution pass a band, per-block sums and small
     per-window corrections."""
-    b, L = norm.shape
     hop, W = C.TEMPO_HOP, C.WINDOW_SIZE
+    K = fb.shape[1] - 1
+    b, L = xp.shape[0], xp.shape[1] - K
     NBF = L // hop
     NW = NBF - 1
-    K = fb.shape[1] - 1
 
-    xp = F.pad(norm, (K, 0))
     z = torch.stack([_fir(xp, fb[i], K, L) for i in range(fb.shape[0])], dim=1)  # [b, NB, L]
 
     alt = tabs["alt"][:hop]  # (-1)^t; blocks start at even offsets
@@ -120,7 +129,11 @@ def _window_energy_blocked(norm, fb, tabs):
     sum_y2 = S2[..., :NW] + S2[..., 1:] + d_s2[..., :NW]
     sum_y = S1[..., :NW] + S1[..., 1:] + d_s1[..., :NW]
     sum_a = SA[..., :NW] + SA[..., 1:] + d_sa[..., :NW]
-    return (W / 2) * sum_y2 + (sum_y * sum_y + sum_a * sum_a) / 2.0
+    # a window's energy is a sum of squares: where the corrections cancel a
+    # loud history's tail (a window just after a loud-to-silence edge) the
+    # float32 rounding may leave it below zero, which the log compression
+    # would turn into NaN (F7)
+    return ((W / 2) * sum_y2 + (sum_y * sum_y + sum_a * sum_a) / 2.0).clamp_min(0.0)
 
 
 def _fir_per_window(frames, coeffs):
@@ -155,6 +168,21 @@ def _window_energy(y, cfg: AnalysisConfig, tabs):
     return torch.sum((X.real * X.real + X.imag * X.imag).to(dtype), dim=-1)
 
 
+def window_energies(xp, cfg: AnalysisConfig, fb, tabs, history: bool = False) -> torch.Tensor:
+    """Per-band window energies [b, NB, NW] in ``cfg.tempo_energy_mode`` of
+    normalized rows (NW = L // 256 - 1 windows at hop 256 over L samples).
+    ``xp`` is [b, L], rows that start a song, or with ``history`` [b, K +
+    L]: the K = taps - 1 normalized samples before each row, then the row.
+    Only "parseval" reads the history (its FIR runs across windows); the
+    framed modes reset the FIR each window and read the row alone."""
+    K = fb.shape[1] - 1
+    if cfg.tempo_energy_mode == "parseval":
+        return _window_energy_blocked(xp if history else F.pad(xp, (K, 0)), fb, tabs)
+    frames = frame_signal(xp[:, K:] if history else xp, C.WINDOW_SIZE, C.TEMPO_HOP)  # a view
+    return torch.stack([_window_energy(_fir_per_window(frames, fb[i]), cfg, tabs)
+                        for i in range(fb.shape[0])], dim=1)
+
+
 def band_energies(batch: PCMBatch, cfg: AnalysisConfig, sums=None) -> torch.Tensor:
     """The XLA-path stage's per-band window energies fa [B, NB, NBF] in the
     config's dtype on the batch's device (NBF = L // 256; per song, slots
@@ -176,14 +204,8 @@ def band_energies(batch: PCMBatch, cfg: AnalysisConfig, sums=None) -> torch.Tens
     for b0, b1 in row_blocks(B, L * fb.shape[0]):
         norm = _normalize_signal(samples[b0:b1], n[b0:b1], (sums[0][b0:b1], sums[1][b0:b1]),
                                  dtype)
-        if cfg.tempo_energy_mode == "parseval":
-            out.append(_window_energy_blocked(norm, fb, tabs))
-            continue
-        frames = frame_signal(norm, W, hop)  # a view [b, NW, W]
-        out.append(torch.stack(
-            [_window_energy(_fir_per_window(frames, fb[i]), cfg, tabs)
-             for i in range(fb.shape[0])], dim=1))
-        del frames, norm
+        out.append(window_energies(norm, cfg, fb, tabs))
+        del norm
     energy = torch.cat(out)
     NW = energy.shape[-1]
     trunc_n = n - n % W

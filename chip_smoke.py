@@ -144,10 +144,30 @@ Phases, one line each, stopping at the first failure:
    ``similarity_rows``) beside the CLI's ``store neighbors``; (d) a health
    probe every 0.5 s made to raise a CUDA error text: ``/metrics`` degraded,
    then recovered once; (e) ``doctor --device cuda``; (f) ``ScanJob``
-   headless: its CSV rows are (a)'s force vectors.
+   headless: its CSV rows are (a)'s force vectors;
+14. the XLA-path modes streamed (M7b) and ``scripts/kernel_smoke.py``'s
+   single-device matrix, with TF32 asserted off: (a) phase 9's long songs
+   and mix through ``analyze_song_streaming`` under ``AnalysisConfig()``,
+   ``bliss_tpu``'s CPU float32 config, ``for_parity()`` (the 12-minute
+   song and the mix), the iterative amplitude with ``parseval_framed``,
+   161 taps and F6's ``AnalysisConfig(fused_kernel=True)``: the prepass
+   once a song and no K1, K2 or K3 on an XLA-path config (F6's: K2 and K3
+   once a group of rows); beats identical to the song whole at B=1 under
+   the same config with the float64 finish, and at ``chunk_samples`` 2^20,
+   the rest within 1e-3 (1e-5 in float64); seconds a song and peak device
+   memory, streamed and whole; a trace of the 12-minute song streamed; and
+   ``pipeline._scan`` of three long songs under ``AnalysisConfig()``, each
+   streamed; (b) the matrix's 12 single-device rows (bands 1/5/36 x split
+   and exact FIR on K2 + K3, bands 1/5/36 on K1, ``stft_conv="fast"`` on
+   both, ``for_gpu()`` with extended) on its B=8, L=2^17 batch: finite
+   rows, the extended columns in their physical ranges, each config's
+   kernels against their plain versions within phase 3's gates, each row
+   within the script's rule of its ``bandsN-exact`` anchor, and one song
+   streamed in rows of 2^15 counting its beats whole.
 
-The last two lines of standard output are a JSON line of the kernels and
-their timings and the card's name and power limit; the very last line is
+The script's total time follows. The last two lines of standard output
+are a JSON line of the kernels and their timings and the card's name and
+power limit; the very last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 and prints no result. Needs one card.
 """
@@ -2482,7 +2502,294 @@ def serve_phase(arrays, durations, long_pcm, long_durs, long_rows, vectors, devi
     return launches
 
 
+# --- phase 14: the XLA-path modes streamed (M7b), kernel_smoke's matrix -------
+
+
+def m7b_configs() -> dict:
+    """The configs phase 14 (a) streams: ``xla_configs``, ``for_parity()``,
+    the iterative amplitude with the framed energies, 161 taps (past the
+    kernels' 129), and F6's ``AnalysisConfig(fused_kernel=True)`` (K2 and
+    K3 with ``tempo_finish="device"``)."""
+    from bliss_tpu_torch import AnalysisConfig
+
+    return {**xla_configs(), "parity": AnalysisConfig.for_parity(),
+            "iterative_framed": AnalysisConfig(amplitude_mode="iterative",
+                                               tempo_energy_mode="parseval_framed"),
+            "taps161": AnalysisConfig(band_taps=161),
+            "f6_kernels": AnalysisConfig(fused_kernel=True)}
+
+
+PARITY_LONG = 2  # for_parity() streams the last two of phase 9's songs: 12 min and the mix
+
+
+def measured(fn, device):
+    """(fn(), seconds, peak device memory in GiB above what was held before,
+    or None without a card)."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30 if on_card else None
+    return out, secs, peak
+
+
+def gib_line(peaks) -> str:
+    return "not measured (no card)" if None in peaks else \
+        "[" + ", ".join(f"{p:.3f}" for p in peaks) + "] GiB"
+
+
+def stream_modes_part(songs, durs, device, label) -> dict:
+    """Phase 14 (a): phase 9's long songs and mix streamed under each of
+    ``m7b_configs`` (``for_parity()`` on the 12-minute song and the mix),
+    each song against the port's whole-song ``api.analyze_features`` of
+    the same song at B=1 in its bucket under the same config with the
+    float64 finish: beats identical, the rest within 1e-3 (1e-5 in
+    float64); ``chunk_samples`` 2^20 counts the beats of 2^22; each streamed
+    song launches the prepass once and, on an XLA-path config, no K1, K2 or
+    K3 (F6's kernel config: K2 and K3 once a group of rows). Prints seconds
+    a song and peak device memory above what was held, streamed and whole,
+    and a trace of the 12-minute song streamed under ``AnalysisConfig()``;
+    then ``pipeline._scan`` of three long songs under ``AnalysisConfig()``
+    streams each (the ``streaming`` stage 3 times). Returns the launches of
+    the streamed runs at 2^22, summed."""
+    from bliss_tpu_torch import AnalysisConfig, pipeline
+    from bliss_tpu_torch.config import uses_kernels
+    from bliss_tpu_torch.features import streaming
+    from bliss_tpu_torch.io import DecodedAudio
+    from bliss_tpu_torch.kernels import stft
+    from bliss_tpu_torch.utils import StageTimer
+
+    total = dict.fromkeys(launch_counts(), 0)
+    CH = streaming.DEFAULT_CHUNK
+    group = max(1, streaming.GROUP_SAMPLES // (CH + stft.FRAME))
+    rows_by_cfg = {}
+    for name, cfg in m7b_configs().items():
+        t0 = time.perf_counter()
+        idx = range(len(songs) - PARITY_LONG, len(songs)) if name == "parity" else range(len(songs))
+        exact = cfg if cfg.tempo_finish == "host" else dataclasses.replace(
+            cfg, tempo_finish="device_exact")
+        kernels = uses_kernels(cfg)
+        rows, r20, secs, peaks, whole_secs, whole_peaks, per_song = [], [], [], [], [], [], []
+        for i in idx:
+            s, d = songs[i], durs[i]
+            reset_counts()
+            row, sec, peak = measured(
+                lambda: streaming.analyze_song_streaming(s, d, cfg, device=device), device)
+            got = launch_counts()
+            groups = -(-(-(-s.shape[0] // CH)) // group)
+            want = {"prepass": 1, "fused_all": 0, "fused_stats": groups if kernels else 0,
+                    "stft_power": groups if kernels else 0}
+            if got != want:
+                raise AssertionError(f"phase 14 (a) {name} song {i} launched {got}; want {want}")
+            for k, v in got.items():
+                total[k] += v
+            per_song.append(tuple(got.values()))
+            rows.append(row)
+            secs.append(sec)
+            peaks.append(peak)
+            r20.append(streaming.analyze_song_streaming(s, d, cfg, 1 << 20, device=device))
+            whole, wsec, wpeak = measured(lambda: whole_rows([s], [d], exact, device)[0][0], device)
+            whole_secs.append(wsec)
+            whole_peaks.append(wpeak)
+            tol = 1e-5 if cfg.dtype == "float64" else 1e-3
+            for what, got_row in (("streamed", row), ("streamed at 2^20", r20[-1])):
+                err = np.abs(got_row[1:].astype(np.float64) - whole[1:])
+                if beat_counts(got_row[None], [d])[0] != beat_counts(whole[None], [d])[0] \
+                        or not np.isfinite(got_row).all() or not (err <= tol).all():
+                    raise AssertionError(f"phase 14 (a) {name} song {i} {what}: {got_row} against "
+                                         f"the song whole {whole} (beats, then within {tol:g})")
+        rows = np.stack(rows)
+        rows_by_cfg[name] = rows
+        err = np.abs(rows[:, 1:] - np.stack(r20)[:, 1:]).max()
+        log(f"m7b (phase 14) (a) {name}: {len(rows)} songs streamed "
+            f"({', '.join(str(int(b)) for b in beat_counts(rows, [durs[i] for i in idx]))} beats), "
+            f"launches a song (prepass, K1, K2, K3) {sorted(set(per_song))}; "
+            f"beats identical to each song whole at B=1 under the float64 finish and at "
+            f"chunk_samples 2^20 (max |diff| vs 2^20 {err:.2e}); seconds a song streamed "
+            f"{secs_line(secs)}, whole {secs_line(whole_secs)}; peak device memory streamed "
+            f"{gib_line(peaks)}, whole {gib_line(whole_peaks)}; {time.perf_counter() - t0:.1f} s "
+            f"{label}")
+
+    default = AnalysisConfig()
+    song12, dur12 = songs[-2], durs[-2]
+    log(f"m7b (phase 14) (a) trace of the {song12.shape[0]}-sample song streamed under "
+        f"AnalysisConfig(): {trace_text(lambda: streaming.analyze_song_streaming(song12, dur12, default, device=device), device)} {label}")
+
+    three = [DecodedAudio(songs[i], 2, SR, 0, 2, 0, durs[i], f"long-{i}", "", "", "", "", "")
+             for i in range(3)]
+    result = pipeline.ScanResult([d.filename for d in three], np.full((3, 4), np.nan, np.float32),
+                                 np.zeros(3, bool), {}, {})
+    timer = StageTimer()
+    reset_counts()
+    pipeline._scan(result, enumerate(three), cfg=default, batch_size=MAIN_B,
+                   device=torch.device(device), timer=timer)
+    launches = no_kernel_launch("phase 14 (a) the scan")
+    stats = timer.report()
+    if stats.get("streaming", {}).get("count") != 3 or not result.ok.all() or \
+            launches["prepass"] != 3:
+        raise AssertionError(f"phase 14 (a) the scan of three long songs under AnalysisConfig(): "
+                             f"ok {result.ok}, launches {launches}, stages {stats}")
+    err = same_scores("phase 14 (a) the scan", result.features, rows_by_cfg["default"][:3],
+                      "the songs streamed")
+    log(f"m7b (phase 14) (a) pipeline._scan of three long songs under AnalysisConfig(): every row "
+        f"ok, the streaming stage x{stats['streaming']['count']}, launches {launches}, rows as "
+        f"streamed (max |diff| {err.max():.2e}); {stage_line(stats)} {label}")
+    return total
+
+
+def matrix_configs():
+    """``scripts/kernel_smoke.py::smoke_configs``'s 12 single-device rows
+    (the two ``bandsN-sharded`` rows wait for the mesh), as (name, the
+    port's config with the same fields, extended)."""
+    from bliss_tpu_torch import AnalysisConfig
+
+    base = dict(dtype="float32", amplitude_mode="poly", fused_kernel=True,
+                tempo_finish="device_exact")
+    banks = ((1, "firwin"), (5, "reference5"), (36, "reference36"))
+    cfgs = [(f"bands{nb}-{conv}", AnalysisConfig(**base, fused_conv=conv, filterbank=fbk), False)
+            for nb, fbk in banks for conv in ("split", "exact")]
+    cfgs += [(f"bands{nb}-single_pass", AnalysisConfig(**base, single_pass=True, filterbank=fbk), False)
+             for nb, fbk in banks]
+    cfgs += [(f"bands1-stft_fast{'-single_pass' if sp else ''}",
+              AnalysisConfig(**base, single_pass=sp, stft_conv="fast"), False) for sp in (False, True)]
+    cfgs.append(("bands1-extended", AnalysisConfig.for_gpu(), True))
+    return cfgs
+
+
+def matrix_batch():
+    """``scripts/kernel_smoke.py:137-147``'s batch: B=8, L=2^17, a 440 Hz
+    tone and noise from ``np.random.RandomState(0)``, song i rolled by 131
+    i samples; 3 s each."""
+    B, L = 8, 1 << 17
+    rng = np.random.RandomState(0)
+    t = np.arange(L)
+    sig = 5000 * np.sin(2 * np.pi * t * 440 / 22050) + rng.randn(L) * 500
+    return [np.clip(np.roll(sig, 131 * i), -32000, 32000).astype(np.int16) for i in range(B)], [3] * B
+
+
+def extended_sanity(label, ext) -> None:
+    """``scripts/kernel_smoke.py::_check_extended_sanity``'s physical ranges
+    of the 45 extended columns [B, 45]."""
+    nyq = 22050 / 2
+    gates = (("zero_crossing_rate", ext[:, 0], 0.0, 1.0), ("loudness_db", ext[:, 1], -200.0, 0.0),
+             ("spectral_centroid_hz", ext[:, 2], 0.0, nyq),
+             ("spectral_rolloff_hz", ext[:, 3], 0.0, nyq),
+             ("spectral_flatness", ext[:, 4], 0.0, 1.001), ("bpm", ext[:, 5], 0.0, 1000.0),
+             ("chroma_sum", np.sum(ext[:, -12:], axis=1), 0.999, 1.001))
+    for fname, col, lo, hi in gates:
+        if not ((col >= lo) & (col <= hi)).all():
+            raise AssertionError(f"{label}: extended {fname} outside [{lo}, {hi}]: {col}")
+
+
+def matrix_kernels(batch, cfg) -> float:
+    """The kernels of ``cfg``'s path against their plain versions on
+    ``batch``, with the config's filterbank and FIR mode, within phase 3's
+    gates; returns the largest relative error."""
+    from bliss_tpu_torch.kernels import fused_all as fa
+    from bliss_tpu_torch.kernels import fused_stats as fs
+    from bliss_tpu_torch.kernels import stft
+
+    x, n = batch.samples, batch.n_samples
+    prepass_errors(fs.prepass_sums(x, n), fs.prepass_sums_reference(x, n))
+    alpha, beta, _ = fs.normalization(x, n)
+    kw = dict(nb_bands=cfg.nb_bands, band_taps=cfg.band_taps, filterbank=cfg.filterbank)
+    if cfg.single_pass:
+        n_frames = stft.frame_counts(n)
+        k = fa.fused_all_call(x, alpha, beta, n_frames, **kw)
+        p = fa.fused_all_reference(x, alpha, beta, n_frames, **kw)
+        errs = {**stats_errors("fused_all", k, p), **power_errors("fused_all", k[3], p[3])}
+    else:
+        errs = stats_errors("fused_stats", fs.fused_stats_call(x, alpha, beta, conv_mode=cfg.fused_conv, **kw),
+                            fs.fused_stats_reference(x, alpha, beta, conv_mode=cfg.fused_conv, **kw))
+        precise = cfg.stft_conv == "precise"
+        errs.update(power_errors("stft_power", stft.stft_power(x, n, precise=precise),
+                                 stft.stft_power_reference(x, n, precise=precise)))
+    return max(r for _, r in errs.values())
+
+
+def matrix_part(device, label) -> dict:
+    """Phase 14 (b): each of ``matrix_configs`` on ``matrix_batch`` through
+    ``api.analyze_features`` (the extended row with ``extended=True``):
+    finite rows (the extended columns in their physical ranges), through
+    the config's kernels only; one song streamed at ``chunk_samples`` 2^15
+    (4 rows) counting the beats of the batch (the rest within 1e-3); the
+    config's kernels against their plain versions (not counted); each row
+    against its ``bandsN-exact`` anchor under ``kernel_smoke.py``'s rule
+    (amplitude, frequency, attack within 2e-3; tempo within two beats).
+    Returns the launches of the analyses and streams, summed."""
+    from bliss_tpu_torch import api
+    from bliss_tpu_torch.features import streaming
+    from bliss_tpu_torch.features.types import PCMBatch
+
+    arrays, durs = matrix_batch()
+    batch = PCMBatch.from_arrays(arrays, durs, device=device)
+    total = dict.fromkeys(launch_counts(), 0)
+    feats = {}
+    for name, cfg, ext in matrix_configs():
+        t0 = time.perf_counter()
+        reset_counts()
+        rows = api.analyze_features(batch, cfg, ext)
+        streamed = streaming.analyze_song_streaming(arrays[0], durs[0], cfg, 1 << 15, extended=ext,
+                                                    device=device)
+        sync(device)
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        want = {"prepass", "fused_all"} if cfg.single_pass else {"prepass", "fused_stats", "stft_power"}
+        if {k for k, v in launches.items() if v} != want:
+            raise AssertionError(f"phase 14 (b) {name} launched {launches}; want {sorted(want)} only")
+        for k, v in launches.items():
+            total[k] += v
+        if rows.shape != (len(arrays), 49 if ext else 4) or not np.isfinite(rows).all():
+            raise AssertionError(f"phase 14 (b) {name}: rows not finite: {rows[0]}")
+        what = ""
+        if ext:
+            extended_sanity(f"phase 14 (b) {name}", rows[:, 4:])
+            bpm_counts_beats(f"phase 14 (b) {name}", rows, durs)
+            what = f"; streamed extended {gates_text(ext_gates(name, streamed[None, 4:], rows[:1, 4:], durs[:1]))}"
+        err = same_scores(f"phase 14 (b) {name} streamed at 2^15", streamed[None, :4], rows[:1, :4],
+                          "the batch's row")
+        rel = matrix_kernels(batch, cfg)
+        feats[name] = rows[:, :4]
+        log(f"kernel matrix (phase 14) (b) {name} B=8 L=2^17: {secs * 1e3:.1f} ms with the stream; "
+            f"launches {launches}; kernels vs plain max rel err {rel:.2e}; one song streamed in 4 "
+            f"rows of 2^15: its beats, max |diff| {err.max():.2e}{what} {label}")
+    dev = {}
+    for name, f in feats.items():
+        nb = name.split("-")[0]
+        if name == f"{nb}-exact":
+            continue
+        d = np.abs(f - feats[f"{nb}-exact"]).max(axis=0)
+        dev[name] = d
+        if d[1] > 2e-3 or d[2] > 2e-3 or d[3] > 2e-3 or d[0] > 2 * 4.0 / 3.0:
+            raise AssertionError(f"phase 14 (b) {name}: {d} from {nb}-exact (kernel_smoke's rule)")
+    log("kernel matrix (phase 14) (b) against each bandsN-exact anchor, max |diff| (tempo, amplitude, "
+        "frequency, attack): " + "; ".join(f"{k} " + "/".join(f"{v:.1e}" for v in d) for k, d in dev.items()))
+    return total
+
+
+def m7b_phase(songs, durs, device, label) -> tuple[dict, dict]:
+    """Phase 14: (a) the XLA-path modes streamed (M7b) and (b) the single-
+    device rows of ``scripts/kernel_smoke.py``'s matrix, whole and streamed;
+    TF32 must be off. Returns each part's launches."""
+    t0 = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is allowed; phase 14's float32 products need full float32")
+    a = stream_modes_part(songs, durs, device, label)
+    t1 = time.perf_counter()
+    b = matrix_part(device, label)
+    log(f"m7b (phase 14) took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f}, "
+        f"(b) {time.perf_counter() - t1:.1f}")
+    return a, b
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
               file=sys.stderr)
@@ -2745,7 +3052,6 @@ def main() -> int:
         {"main": cfg, "two_kernel": two, "hybrid": hyb}, label)
     extended_stream_part(long_pcm, long_durs, "cuda", label)
     serve_long = (long_pcm[:SERVE_LONG], long_durs[:SERVE_LONG], long_rows[:SERVE_LONG])
-    del long_pcm
     songs = list(arrays) + [a[::-1].copy() for a in arrays] + [
         np.roll(a, a.shape[0] // 3) for a in arrays]
     scan_phase(songs, durations * 3, cfg, "main", "cuda", MAIN_B, label, runs=1, trace=False,
@@ -2765,6 +3071,11 @@ def main() -> int:
 
     # 13. the serving layer: the daemon, its HTTP gateway, doctor and the GUI
     serve_launches = serve_phase(arrays, durations, *serve_long, out, "cuda", label)
+
+    # 14. the XLA-path modes streamed (M7b) on phase 9's songs, then the
+    # single-device rows of scripts/kernel_smoke.py's matrix
+    m7b_launches, matrix_launches = m7b_phase(long_pcm, long_durs, "cuda", label)
+    del long_pcm, serve_long
 
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():
@@ -2824,6 +3135,9 @@ def main() -> int:
             e["cli_scan_launches"] = cli_launches[e["name"]]
             e["extended_launches"] = {k: v[e["name"]] for k, v in ext_launches.items()}
             e["serve_launches"] = serve_launches[e["name"]]
+            e["m7b_launches"] = m7b_launches[e["name"]]
+            e["matrix_launches"] = matrix_launches[e["name"]]
+    log(f"chip_smoke took {time.perf_counter() - t_script:.1f} s, the builds included")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -198,6 +198,26 @@ def test_a_long_song_is_logged_and_analyzed_whole(files):
     assert api.LONG_SONG_SAMPLES == bliss_tpu.api.LONG_SONG_SAMPLES
 
 
+def test_a_long_song_streams_under_an_xla_path_config(files):
+    """Under ``AnalysisConfig()`` (the XLA-path stage, the float32 device
+    finish) a Song above ``LONG_SONG_SAMPLES`` streams too (M7b), with the
+    float64 finish: its vector is ``analyze_song_streaming``'s, and
+    bliss_tpu's streamed Song's (beats identical, the rest within 5e-4)."""
+    cfg = AnalysisConfig()
+    with mock.patch.object(api, "LONG_SONG_SAMPLES", 50_000):
+        s = bliss_tpu_torch.Song(device="cpu")
+        s.analyze(files[0], cfg=cfg)
+    row = streaming.analyze_song_streaming(s.sample_array, s.duration, cfg, device="cpu")
+    np.testing.assert_array_equal(s.force_vector.as_array(), row)
+    with mock.patch.object(bliss_tpu.api, "LONG_SONG_SAMPLES", 50_000):
+        ref = bliss_tpu.Song()
+        ref.analyze(files[0], cfg=JConfig())
+    assert s.force_vector.tempo == ref.force_vector.tempo  # equal beat counts
+    np.testing.assert_allclose(
+        s.force_vector.as_array()[1:], ref.force_vector.as_array()[1:], rtol=0, atol=5e-4
+    )
+
+
 def test_version_and_exports():
     assert bliss_tpu_torch.version() == bliss_tpu.version() == bliss_tpu_torch.__version__
     assert set(bliss_tpu.__all__) <= set(bliss_tpu_torch.__all__)

@@ -204,6 +204,26 @@ def test_streaming_on_gpu_matches_cpu(cuda, cfg):
     np.testing.assert_allclose(gpu[1:], cpu[1:], rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("cfg", [AnalysisConfig(), AnalysisConfig.for_parity()],
+                         ids=["default", "parity"])
+def test_streaming_an_xla_path_config_on_gpu_matches_cpu(cuda, cfg):
+    """A song streamed under an XLA-path config in five rows of 2^16
+    samples on the card: the CPU's vector (beat counts identical, the rest
+    within 1e-3, 1e-5 in float64), through one prepass launch and no K1,
+    K2 or K3."""
+    from bliss_tpu_torch.features.streaming import analyze_song_streaming
+
+    song = _songs()[0][0]
+    song = np.concatenate([song, song[::-1]])  # 300 000 samples
+    before = _counters() + (fused_stats.PREPASS_LAUNCHES,)
+    gpu = analyze_song_streaming(song, 6, cfg, 1 << 16, device=cuda)
+    assert _counters() + (fused_stats.PREPASS_LAUNCHES,) == before[:3] + (before[3] + 1,)
+    cpu = analyze_song_streaming(song, 6, cfg, 1 << 16, device="cpu")
+    assert gpu[0] == cpu[0]
+    tol = 1e-5 if cfg.dtype == "float64" else 1e-3
+    np.testing.assert_allclose(gpu[1:], cpu[1:], rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize("cfg", [AnalysisConfig.for_gpu(), TWO_KERNEL, AnalysisConfig.for_gpu_hybrid()],
                          ids=["main", "two_kernel", "hybrid"])
 def test_extended_batch_on_gpu_matches_float64(cuda, cfg):

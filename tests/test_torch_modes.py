@@ -325,9 +325,17 @@ def test_analyze_batch_ext_parity_matches_jax(batches):
 
 
 def test_analyze_library_parity_takes_a_long_song_whole(tmp_path, batches):
-    """Under ``for_parity()`` a song above ``long_song_samples`` is not
-    streamed (M7b): it goes through a bucket whole, and its row is the
-    batch path's at that bucket's length and bliss_tpu's."""
+    """Under ``for_parity()`` a song above ``long_song_samples`` no longer
+    goes through a bucket whole (ROADMAP M7b, ported): it streams (the
+    ``streaming`` stage once), and its row is the port's streamed row, its
+    whole song's at its bucket's length within 1e-5 with the same beats,
+    and bliss_tpu's streamed row; the other songs' rows are the batch
+    path's at their bucket's length and bliss_tpu's."""
+    from bliss_tpu.features.streaming import analyze_song_streaming as j_streaming
+
+    from bliss_tpu_torch.features.streaming import analyze_song_streaming
+    from bliss_tpu_torch.io import decode
+
     pcm, durs = songs()
     files = []
     for i, s in enumerate(pcm):
@@ -336,18 +344,24 @@ def test_analyze_library_parity_takes_a_long_song_whole(tmp_path, batches):
     cfg = AnalysisConfig.for_parity()
     r = pipeline.analyze_library(files, cfg=cfg, batch_size=3, device="cpu",
                                  handle_sigint=False, long_song_samples=110_000)
-    assert r.ok.all() and "streaming" not in r.stats
-    from bliss_tpu_torch.io import decode
-
     decoded = [decode(f) for f in files]
-    assert max(d.n_samples for d in decoded) > 110_000
+    long = [d.n_samples > 110_000 for d in decoded]
+    assert r.ok.all() and r.stats["streaming"]["count"] == sum(long) >= 1
     for i, d in enumerate(decoded):
         L = pipeline._bucket_length(d.n_samples, cfg.pad_multiple)
         one = PCMBatch.from_arrays([d.samples], [d.duration], pad_multiple=L, device="cpu")
-        assert np.array_equal(r.features[i], analyze_batch(one, cfg).numpy()[0])
-        jone = JBatch.from_arrays([d.samples], [d.duration], pad_multiple=L)
-        check_rows(r.features[i : i + 1], np.asarray(analyze_batch_jit(jone, JConfig.for_parity())),
-                   JConfig.for_parity(), files[i])
+        whole = analyze_batch(one, cfg).numpy()[0]
+        if not long[i]:
+            assert np.array_equal(r.features[i], whole)
+            jone = JBatch.from_arrays([d.samples], [d.duration], pad_multiple=L)
+            check_rows(r.features[i : i + 1], np.asarray(analyze_batch_jit(jone, JConfig.for_parity())),
+                       JConfig.for_parity(), files[i])
+            continue
+        assert np.array_equal(r.features[i],
+                              analyze_song_streaming(d.samples, d.duration, cfg, device="cpu"))
+        check_rows(r.features[i : i + 1], whole[None], JConfig.for_parity(), f"{files[i]} whole")
+        check_rows(r.features[i : i + 1], j_streaming(d.samples, d.duration, JConfig.for_parity())[None],
+                   JConfig.for_parity(), f"{files[i]} bliss_tpu streamed")
 
 
 def test_float32_finish_at_full_length():

@@ -6,7 +6,8 @@ every module of ``bliss_tpu_torch.ablate`` and runs one ablation variant,
 runs the prepass sums and the stats kernel's CPU twin, writes two FLAC
 files with the port's writer and scans them with the port's
 ``analyze_library`` on the CPU (the native decoder built at first use), and
-streams a song with ``analyze_song_streaming``, computes the extended
+streams a song with ``analyze_song_streaming`` (under ``for_gpu()`` and
+under ``AnalysisConfig()``, the XLA-path stage), computes the extended
 features (``features/extended.py``) batched and streamed, runs the XLA-path
 config modes (``features/amplitude.py``, ``features/frequency.py``, the XLA
 half of ``features/tempo.py``, ``dsp/framing.py``, ``dsp/iir.lfilter_scan``)
@@ -75,6 +76,11 @@ long_song = np.tile(song, 5)  # 150 000 samples: three rows of 2^16
 streamed = analyze_song_streaming(long_song, 3, bliss_tpu_torch.AnalysisConfig.for_gpu(), 1 << 16, device="cpu")
 whole = bliss_tpu_torch.analyze_pcm([long_song], [3], device="cpu")[0]
 assert streamed[0] == whole[0] and np.abs(streamed - whole).max() <= 1e-3, (streamed, whole)
+xla_cfg = bliss_tpu_torch.AnalysisConfig()  # the XLA-path stage streamed, with the float64 finish
+xla_streamed = analyze_song_streaming(long_song, 3, xla_cfg, 1 << 16, device="cpu")
+xla_whole = bliss_tpu_torch.analyze_pcm(
+    [long_song], [3], cfg=bliss_tpu_torch.AnalysisConfig(tempo_finish="device_exact"), device="cpu")[0]
+assert xla_streamed[0] == xla_whole[0] and np.abs(xla_streamed - xla_whole).max() <= 1e-3, (xla_streamed, xla_whole)
 from bliss_tpu_torch.features import extended
 rows = bliss_tpu_torch.analyze_pcm([long_song, song], [3, 1], device="cpu", extended=True)
 assert rows.shape == (2, 49) and np.isfinite(rows).all(), rows

@@ -295,13 +295,13 @@ def m7_refs(scans):
 @pytest.mark.parametrize("change", list(M7_CHANGES), ids=list(M7_CHANGES))
 def test_an_unported_hybrid_config_is_refused_before_any_decode(scans, m7_refs, entry, change):
     """A tempo_finish="host" config that takes the XLA-path stage (the
-    float64 config, the XLA path; refused until ROADMAP item M7) scans:
-    every row ok and bliss_tpu's (beats identical, float64 within 1e-5,
-    float32 within 5e-4), the store keyed by its config, and the longest
-    song, above ``long_song_samples``, analyzed whole (the streamed form
-    of these configs is M7b)."""
+    float64 config, the XLA path; once refused, ported as ROADMAP items M7
+    and M7b) scans: every row ok and bliss_tpu's (beats identical, float64
+    within 1e-5, float32 within 5e-4), the store keyed by its config, and
+    the longest song, above ``long_song_samples``, streamed (the
+    ``streaming`` stage once) while the others take two buckets."""
     cfg = dataclasses.replace(AnalysisConfig.for_gpu_hybrid(), **M7_CHANGES[change])
-    assert not streaming.streaming_supports(cfg)
+    assert streaming.streaming_supports(cfg)
     store = FeatureStore(str(scans["dir"] / f"m7_{entry}_{change}"))
     files = scans["files"]
     if entry == "analyze_library":
@@ -323,14 +323,43 @@ def test_an_unported_hybrid_config_is_refused_before_any_decode(scans, m7_refs, 
             device=torch.device("cpu"), timer=timer, long_song_samples=90_000,
         )
         stats = timer.report()
-    assert max(decode(f).n_samples for f in files if f != files[BROKEN_AT]) > 90_000
+    assert sum(decode(f).n_samples > 90_000 for f in files if f != files[BROKEN_AT]) == 1
     ref = m7_refs[change]
     assert result.ok.tolist() == ref.ok.tolist()
-    assert "streaming" not in stats and stats["device_dispatch"]["count"] == 4
+    assert stats["streaming"]["count"] == 1 and stats["device_dispatch"]["count"] == 3
     got, want = result.features[result.ok], ref.features[ref.ok]
     assert np.array_equal(got[:, 0], want[:, 0])  # beats
     tol = 1e-5 if cfg.dtype == "float64" else 5e-4
     np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["default", "parity"])
+def test_an_xla_path_long_song_streams_as_bliss_tpu_streams_it(scans, name):
+    """Under ``AnalysisConfig()`` and ``for_parity()`` (the XLA-path stage)
+    ``analyze_library`` streams the song above ``long_song_samples`` (the
+    ``streaming`` stage once, M7b), and its row is bliss_tpu's
+    ``analyze_library`` row at the same ``long_song_samples``, which
+    streams it too: beats identical, float32 within 5e-4, float64 within
+    1e-5. Under ``for_parity()`` every row is held so; under
+    ``AnalysisConfig()`` the bucketed rows take the float32 working-dtype
+    finish, which flips marginal beats in both packages
+    (``tests/test_torch_modes.py::check_f32_finish`` holds those)."""
+    cfg, jcfg = {"default": (AnalysisConfig(), JConfig()),
+                 "parity": (AnalysisConfig.for_parity(), JConfig.for_parity())}[name]
+    files = scans["files"]
+    got = pipeline.analyze_library(files, cfg=cfg, batch_size=2, device="cpu",
+                                   handle_sigint=False, long_song_samples=90_000)
+    ref = jpipeline.analyze_library(files, cfg=jcfg, batch_size=2, handle_sigint=False,
+                                    long_song_samples=90_000)
+    assert got.stats["streaming"]["count"] == ref.stats["streaming"]["count"] == 1
+    assert got.ok.tolist() == ref.ok.tolist()
+    long = [i for i, f in enumerate(files) if got.ok[i] and decode(f).n_samples > 90_000]
+    rows = slice(None) if name == "parity" else long
+    a, b = got.features[rows], ref.features[rows]
+    a, b = a[np.isfinite(b[:, 0])], b[np.isfinite(b[:, 0])]  # the failed file's NaN row
+    assert len(long) == 1 and np.array_equal(a[:, 0], b[:, 0])  # beats
+    tol = 1e-5 if cfg.dtype == "float64" else 5e-4
+    np.testing.assert_allclose(a[:, 1:], b[:, 1:], rtol=0, atol=tol)
 
 
 def test_scan_defaults_to_the_gpu(scans):

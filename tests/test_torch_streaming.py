@@ -6,6 +6,7 @@ bounds, the window energies, chunk-size invariance, edge cases of the fold,
 the extended row, the refusals, and the launch counters the pipeline's
 threads share."""
 
+import dataclasses
 import sys
 import threading
 from unittest import mock
@@ -228,11 +229,19 @@ def test_streamed_extended_row_matches_jax_and_the_whole_shape_path(song, jax_ex
 
 @pytest.mark.parametrize("case", ["float64", "chunk_not_a_frame"])
 def test_refusals(song, case):
+    """What streaming refuses: a mode name neither package knows, and rows
+    that are not whole frames. A float64 config that takes the XLA-path
+    stage is refused no more (ROADMAP M7b, ported): it streams, with the
+    row of the song whole within 1e-5 and its beats."""
     samples, dur = song
     cfg, kw = AnalysisConfig.for_gpu(), {}
     if case == "float64":
-        # an XLA-path config: its streamed form is ROADMAP item M7b
-        cfg, err, match = AnalysisConfig(dtype="float64", fused_kernel=True, tempo_finish="host"), NotImplementedError, "M7b"
+        cfg = AnalysisConfig(dtype="float64", fused_kernel=True, tempo_finish="host")
+        got = streaming.analyze_song_streaming(samples, dur, cfg, CH, device="cpu")
+        whole = analyze_batch(PCMBatch.from_arrays([samples], [dur], device="cpu"), cfg).numpy()[0]
+        assert _beats(got, dur) == _beats(whole, dur)
+        np.testing.assert_allclose(got[1:], whole[1:], rtol=0, atol=1e-5)
+        cfg, err, match = dataclasses.replace(cfg, amplitude_mode="gather"), ValueError, "amplitude_mode"
     else:
         kw, err, match = {"chunk_samples": CH + 512}, ValueError, "multiple of 1024"
     with pytest.raises(err, match=match):
