@@ -26,8 +26,12 @@ never falls back to the CPU; ``doctor`` reports the device's checks as
 failed instead. ``--extended`` adds the 45 extended features to ``analyze``'s
 report, ``scan``'s CSV and store rows, and ``radio``'s clustering.
 ``--bands`` and ``--filterbank firwin|reference5|reference36`` select the
-tempo filterbank. ``--mesh`` (ROADMAP M10) and a config that
-``check_supported`` refuses exit with status 2 before any decode, store
+tempo filterbank. ``--mesh N`` or ``NxM`` (``ml-analyze``, ``playlist``,
+``scan``, ``radio``, ``serve``) analyzes the buckets over an N x M
+('data' x 'seq') device mesh (``bliss_tpu_torch.parallel``): the first N·M
+CUDA devices under ``--device cuda``, the CPU repeated N·M times under
+``--device cpu``, as JAX's virtual host devices. A config that
+``check_supported`` refuses exits with status 2 before any decode, store
 write or bind.
 
 Run: python -m bliss_tpu_torch.cli <command> ...
@@ -97,11 +101,38 @@ def _band_config(args):
     return dataclasses.replace(cfg, **kw) if kw else cfg
 
 
+def _parse_mesh(spec, device: torch.device):
+    """'4' -> 4-way data parallel; '4x2' -> (data=4, seq=2) mesh, over the
+    first CUDA devices under a CUDA ``device``, over ``device`` repeated
+    otherwise (the CPU's counterpart of JAX's virtual host devices)."""
+    if not spec:
+        return None
+    from bliss_tpu_torch.parallel import analysis_mesh
+
+    parts = spec.lower().split("x")
+    try:
+        if len(parts) > 2:
+            raise ValueError("too many axes")
+        n_data = int(parts[0])
+        n_seq = int(parts[1]) if len(parts) > 1 else 1
+        if n_data < 1 or n_seq < 1:
+            raise ValueError("an empty axis")
+    except ValueError:
+        raise SystemExit(
+            f"--mesh {spec!r}: expected 'N' or 'NxM' (data x seq shards)"
+        )
+    need = n_data * n_seq
+    if device.type != "cuda":
+        return analysis_mesh(n_data, n_seq, devices=[device] * need)
+    have = torch.cuda.device_count()
+    if need > have:
+        raise SystemExit(f"--mesh {spec!r} needs {need} devices, have {have}")
+    return analysis_mesh(n_data, n_seq, devices=[torch.device("cuda", i) for i in range(need)])
+
+
 def _unported(args) -> str | None:
-    """Why ``args`` asks for a part the port does not run yet (naming its
-    ROADMAP item) or a config ``check_supported`` refuses, or None."""
-    if getattr(args, "mesh", None):
-        return "--mesh (analysis over a device mesh) is ROADMAP item M10 of the port"
+    """Why ``args`` asks for a config ``check_supported`` refuses, or
+    None."""
     if hasattr(args, "filterbank"):
         try:
             check_supported(_band_config(args))
@@ -127,8 +158,8 @@ def _add_band_opts(parser) -> None:
 def _add_mesh_opt(parser) -> None:
     parser.add_argument(
         "--mesh", default=None,
-        help="shard analysis over a device mesh ('4', '4x2'): ROADMAP item"
-        " M10 of the port",
+        help="shard analysis over a device mesh: '4' = 4-way data parallel,"
+        " '4x2' = 4 data x 2 sequence shards (--device cpu: the CPU repeated)",
     )
 
 
@@ -189,8 +220,9 @@ def cmd_ml_analyze(args) -> int:
     from bliss_tpu_torch.pipeline import analyze_library
 
     device = _device(args)
+    mesh = _parse_mesh(args.mesh, device)
     files = _collect_audio_files(args.files)
-    result = analyze_library(files, batch_size=args.batch_size, device=device)
+    result = analyze_library(files, batch_size=args.batch_size, mesh=mesh, device=device)
     out = open(args.output, "w", newline="") if args.output else sys.stdout
     try:
         # csv.writer quotes a title containing the ';' delimiter (byte-
@@ -247,12 +279,13 @@ def cmd_playlist(args) -> int:
     from bliss_tpu_torch.store import FeatureStore
 
     device = _device(args)
+    mesh = _parse_mesh(args.mesh, device)
     files = _collect_audio_files(args.paths)
     if args.seed not in files:
         files = [args.seed] + files
     store = FeatureStore(args.store) if args.store else None
     result = analyze_library(
-        files, store=store, batch_size=args.batch_size, device=device
+        files, store=store, batch_size=args.batch_size, mesh=mesh, device=device
     )
     valid = [i for i in range(len(files)) if result.ok[i]]
     feats = result.features[valid]
@@ -271,6 +304,7 @@ def cmd_scan(args) -> int:
     from bliss_tpu_torch.store import FeatureStore
 
     device = _device(args)
+    mesh = _parse_mesh(args.mesh, device)
     files = _collect_audio_files(args.paths)
     store = FeatureStore(args.store) if args.store else None
 
@@ -281,7 +315,7 @@ def cmd_scan(args) -> int:
     result = analyze_library(
         files, cfg=_band_config(args), store=store,
         batch_size=args.batch_size, progress=progress, extended=args.extended,
-        device=device,
+        mesh=mesh, device=device,
     )
     print("", file=sys.stderr)
     from bliss_tpu_torch.features.types import EXTENDED_FEATURE_NAMES
@@ -324,11 +358,12 @@ def cmd_radio(args) -> int:
     from bliss_tpu_torch.store import FeatureStore
 
     device = _device(args)
+    mesh = _parse_mesh(args.mesh, device)
     files = _collect_audio_files(args.paths)
     store = FeatureStore(args.store) if args.store else None
     result = analyze_library(
         files, cfg=_band_config(args), store=store,
-        batch_size=args.batch_size, extended=args.extended, device=device,
+        batch_size=args.batch_size, extended=args.extended, mesh=mesh, device=device,
     )
     valid = [i for i in range(len(files)) if result.ok[i]]
     feats = result.features[valid]
@@ -682,12 +717,14 @@ def cmd_serve(args) -> int:
     if args.socket is None and args.port is None and args.http_port is None:
         raise SystemExit("serve: pass --socket, --port, or --http-port")
     device = _device(args)  # no GPU: stop before any store, warmup or bind
+    mesh = _parse_mesh(args.mesh, device)
     server = AnalysisServer(
         args.socket,
         port=args.port,
         cfg=_band_config(args),
         store=FeatureStore(args.store) if args.store else None,
         batch_size=args.batch_size,
+        mesh=mesh,
         health_probe_interval=args.health_probe or None,
         device=device,
     )

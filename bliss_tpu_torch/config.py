@@ -176,9 +176,9 @@ def uses_kernels(cfg: AnalysisConfig) -> bool:
 def check_supported(cfg: AnalysisConfig) -> None:
     """Raise ValueError for a mode name ``bliss_tpu`` does not know either
     (it raises when it meets one at analysis time; the port raises before
-    any decode). Every single-device config ``bliss_tpu`` runs is run here,
-    whole and streamed (``features/streaming.analyze_song_streaming``); the
-    mesh is ROADMAP item M10."""
+    any decode). Every config ``bliss_tpu`` runs is run here, whole and
+    streamed (``features/streaming.analyze_song_streaming``), and over a
+    device mesh (``parallel.analyze_sharded``)."""
     for field, names in MODES.items():
         if getattr(cfg, field) not in names:
             raise ValueError(

@@ -191,17 +191,27 @@ def launch_hybrid(batch: PCMBatch, cfg: AnalysisConfig, extended: bool = False):
     L = batch.samples.shape[1]
 
     def finish(n_samples: np.ndarray, durations: np.ndarray) -> np.ndarray:
-        amplitude, frequency, fa, ext = _unpack_stage(packed.cpu().numpy(), cfg, L, extended)
-        if not extended:
-            tempo, attack = envelope_finish_host(fa, n_samples, durations)
-            return np.stack([tempo, amplitude, frequency, attack], axis=1)
-        tempo, attack, aux = envelope_finish_host(fa, n_samples, durations, return_aux=True)
-        bpm, loud = beat_cols_from_host_aux(aux, durations)
-        ext[:, EXTENDED_FEATURE_NAMES.index("bpm")] = bpm
-        ext[:, EXTENDED_FEATURE_NAMES.index("beat_loudness")] = loud
-        return np.concatenate([np.stack([tempo, amplitude, frequency, attack], axis=1), ext], axis=1)
+        return finish_packed(packed.cpu().numpy(), cfg, L, extended, n_samples, durations)
 
     return finish
+
+
+def finish_packed(packed: np.ndarray, cfg: AnalysisConfig, L: int, extended: bool,
+                  n_samples: np.ndarray, durations: np.ndarray) -> np.ndarray:
+    """The host half of the hybrid path: a copied-back
+    ``_device_stage_packed`` array of a batch of length L -> [B, 4] (with
+    ``extended``, [B, 49]) float32 rows, the tempo and attack from the
+    float64 envelope finish, and the extended bpm and beat_loudness from
+    its aux."""
+    amplitude, frequency, fa, ext = _unpack_stage(packed, cfg, L, extended)
+    if not extended:
+        tempo, attack = envelope_finish_host(fa, n_samples, durations)
+        return np.stack([tempo, amplitude, frequency, attack], axis=1)
+    tempo, attack, aux = envelope_finish_host(fa, n_samples, durations, return_aux=True)
+    bpm, loud = beat_cols_from_host_aux(aux, durations)
+    ext[:, EXTENDED_FEATURE_NAMES.index("bpm")] = bpm
+    ext[:, EXTENDED_FEATURE_NAMES.index("beat_loudness")] = loud
+    return np.concatenate([np.stack([tempo, amplitude, frequency, attack], axis=1), ext], axis=1)
 
 
 def analyze_batch_hybrid(

@@ -102,12 +102,20 @@ def _window_energy_blocked(xp, fb, tabs):
       product of the preceding history (``tables.fir_warmup_correction``).
 
     So the stage is one convolution pass a band, per-block sums and small
-    per-window corrections."""
-    hop, W = C.TEMPO_HOP, C.WINDOW_SIZE
+    per-window corrections (``blocked_sums``, ``blocked_energies``)."""
+    return blocked_energies(*blocked_sums(xp, fb, tabs))
+
+
+def blocked_sums(xp, fb, tabs):
+    """The pieces of ``_window_energy_blocked`` per 256-sample block of the
+    rows ``xp`` [b, K + L]: (S, D), each [b, NB, NBF, 3] (NBF = L // 256),
+    S the block's (sum z, sum z^2, sum (-1)^t z) of the global convolution
+    z, D the warm-up correction's (sum delta, sum 2 z delta + delta^2,
+    sum (-1)^t delta) over the block's first K samples."""
+    hop = C.TEMPO_HOP
     K = fb.shape[1] - 1
     b, L = xp.shape[0], xp.shape[1] - K
     NBF = L // hop
-    NW = NBF - 1
 
     z = torch.stack([_fir(xp, fb[i], K, L) for i in range(fb.shape[0])], dim=1)  # [b, NB, L]
 
@@ -125,10 +133,22 @@ def _window_energy_blocked(xp, fb, tabs):
     d_s2 = torch.sum(2.0 * zh * delta + delta * delta, dim=-1)
     d_s1 = torch.sum(delta, dim=-1)
     d_sa = torch.sum(delta * alt[:K], dim=-1)
+    return torch.stack([S1, S2, SA], dim=-1), torch.stack([d_s1, d_s2, d_sa], dim=-1)
 
-    sum_y2 = S2[..., :NW] + S2[..., 1:] + d_s2[..., :NW]
-    sum_y = S1[..., :NW] + S1[..., 1:] + d_s1[..., :NW]
-    sum_a = SA[..., :NW] + SA[..., 1:] + d_sa[..., :NW]
+
+def blocked_energies(S, D, S_next=None):
+    """Window energies [b, NB, NW] from ``blocked_sums``: window w spans
+    blocks w and w + 1 with its FIR reset at w's start, so its sums are
+    S[w] + S[w + 1] + D[w]. Without ``S_next`` the rows' NW = NBF - 1
+    windows; with it ([b, NB, 3], the sums of the block after the rows, as
+    a sequence shard takes its right neighbour's first block) all NBF."""
+    W = C.WINDOW_SIZE
+    if S_next is None:
+        S_here, S_after, D = S[:, :, :-1], S[:, :, 1:], D[:, :, :-1]
+    else:
+        S_here, S_after = S, torch.cat([S[:, :, 1:], S_next[:, :, None]], dim=2)
+    sums = S_here + S_after + D
+    sum_y, sum_y2, sum_a = sums.unbind(dim=-1)
     # a window's energy is a sum of squares: where the corrections cancel a
     # loud history's tail (a window just after a loud-to-silence edge) the
     # float32 rounding may leave it below zero, which the log compression

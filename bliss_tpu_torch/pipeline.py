@@ -24,7 +24,9 @@ cost grows with the song rather than with a bucket of 64 such songs.
 to every row, from the same device pass and envelope finish, on every route
 (batch, hybrid, streamed); store entries then hold the 49 columns.
 
-Not ported yet: a ``mesh`` (ROADMAP M10) raises NotImplementedError.
+With a ``mesh`` (``parallel.analysis_mesh``) every bucket is analyzed over
+it (``parallel.analyze_sharded_async``); a long song still streams alone,
+on the scan's ``device``.
 """
 
 from __future__ import annotations
@@ -74,10 +76,13 @@ def _dispatch_analysis(
     cfg: AnalysisConfig,
     device: torch.device,
     extended: bool = False,
+    mesh=None,
 ):
     """Start device analysis of a padded host batch; returns a callable that
     blocks and yields the [B, 4] float32 features (the async half), [B, 49]
-    with ``extended``.
+    with ``extended``. With a ``mesh`` the batch is analyzed over it
+    (``parallel.analyze_sharded_async``), each shard copied from the host
+    to its own device.
 
     The PCM is copied to ``device`` here (from pageable memory, so the
     copy blocks this thread); the launches that follow are asynchronous on
@@ -86,6 +91,11 @@ def _dispatch_analysis(
     result and host arrays only, never the batch: its device-to-host copy,
     and for a ``tempo_finish="host"`` config the float64 envelope finish,
     run on whichever thread calls it."""
+    if mesh is not None:
+        from bliss_tpu_torch.parallel import analyze_sharded_async
+
+        host = PCMBatch(*(torch.from_numpy(a) for a in (samples, n_samples, durations)))
+        return analyze_sharded_async(host, mesh, cfg, extended)
     batch = PCMBatch(
         torch.from_numpy(samples).to(device),
         torch.from_numpy(n_samples).to(device),
@@ -131,7 +141,9 @@ def analyze_library(
     Songs longer than ``long_song_samples`` interleaved samples are
     streamed one by one (``features/streaming.py``) on the finalize thread
     instead of padded into a bucket; their time shows as the ``streaming``
-    stage. ``None`` sends every song through the buckets.
+    stage. ``None`` sends every song through the buckets. With a ``mesh``
+    (``parallel.analysis_mesh``) the buckets are analyzed over it, and a
+    long song still streams alone on ``device``.
 
     progress: optional callback (done, total, message). With
     ``extended=True`` the 45 extended features are computed in the same
@@ -148,8 +160,6 @@ def analyze_library(
     re-run with the same store resumes losslessly. A second Ctrl-C raises
     KeyboardInterrupt immediately.
     """
-    if mesh is not None:
-        raise NotImplementedError("analysis over a mesh is ROADMAP item M10")
     device = resolve_device(device)
     if cfg is None:
         from bliss_tpu_torch.api import default_config
@@ -248,6 +258,7 @@ def analyze_library(
         handle_sigint=handle_sigint,
         long_song_samples=long_song_samples,
         extended=extended,
+        mesh=mesh,
     )
 
     stats = timer.report()
@@ -292,6 +303,7 @@ def _scan(
     handle_sigint: bool = False,
     long_song_samples: int | None = LONG_SONG_SAMPLES,
     extended: bool = False,
+    mesh=None,
 ) -> bool:
     """``analyze_library``'s loop after decode: takes ``(index, DecodedAudio
     | None)`` pairs in scan order (None: the file failed to decode), buckets
@@ -300,7 +312,8 @@ def _scan(
     song's row, ``ok`` flag or error into ``result`` (and ``store``, for the
     indices in ``fps``); with ``extended`` also each song's extended row
     into ``result.extended`` (made NaN here if it is None), and 49-column
-    store entries. Returns whether the scan was cancelled."""
+    store entries; with a ``mesh``, the buckets go over it and the long
+    songs stream on ``device``. Returns whether the scan was cancelled."""
     check_supported(cfg)
     files, features, ok, errors = result.files, result.features, result.ok, result.errors
     if extended and result.extended is None:
@@ -350,7 +363,7 @@ def _scan(
             n_samples = np.array([a.shape[0] for a in arrays], np.int32)
             durations = np.array(durs, np.int32)
         with timer.stage("device_dispatch"):
-            fin = _dispatch_analysis(samples, n_samples, durations, cfg, device, extended)
+            fin = _dispatch_analysis(samples, n_samples, durations, cfg, device, extended, mesh)
 
         def timed_fin(fin=fin):
             # time INSIDE the pool thread: thread_time() from the main

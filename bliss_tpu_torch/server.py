@@ -43,8 +43,9 @@ Ops:
 ``a``/``b`` accept either an audio path (analyzed, store-cached) or a
 ready 4-element force vector. All analysis rides the same
 ``pipeline.analyze_library`` as the CLI — store caching, long-song
-streaming and per-song failure isolation apply unchanged; a ``mesh`` goes
-to ``analyze_library``, which refuses it (ROADMAP M10). Concurrent client
+streaming and per-song failure isolation apply unchanged; a ``mesh``
+(``parallel.analysis_mesh``) goes to ``analyze_library``, which analyzes
+every bucket over it, and to warmup's clip. Concurrent client
 connections are accepted; analysis requests are serialized on one lock (a
 single device queue beats interleaved launches on one card). Every op runs
 on the server's ``device``, passed explicitly: nothing depends on a
@@ -226,15 +227,15 @@ class AnalysisServer:
         ``analyze_library`` runs after decode. On the GPU that builds the
         CUDA libraries with ``nvcc`` if they are not on disk yet
         (``kernels/_build``), creates the CUDA context and launches the
-        prepass and K1 once. It decodes nothing: the card's machines may
+        prepass and K1 once (with a ``mesh``, the clip is analyzed over it:
+        the prepass, K2 and K3 where its shards take the kernels). It
+        decodes nothing: the card's machines may
         lack the libav development files that the native decoder builds
         against, and the decode round trip is ``doctor``'s check."""
         from bliss_tpu_torch import pipeline
         from bliss_tpu_torch.io import DecodedAudio
         from bliss_tpu_torch.utils import StageTimer
 
-        if self.mesh is not None:
-            raise NotImplementedError("analysis over a mesh is ROADMAP item M10")
         n = int(22050 * seconds)
         t = np.arange(n)
         pcm = (
@@ -250,7 +251,7 @@ class AnalysisServer:
         with self._analysis_lock:
             self._device_call(lambda: pipeline._scan(
                 result, enumerate([clip]), cfg=self.cfg, batch_size=self.batch_size,
-                device=self.device, timer=StageTimer(),
+                device=self.device, timer=StageTimer(), mesh=self.mesh,
             ))
         if not result.ok.all():
             raise RuntimeError(f"warmup analysis failed: {result.errors}")

@@ -23,9 +23,19 @@ _UNINITIALIZED = frozenset(
 
 
 class _NanCheck(TorchDispatchMode):
+    """Checks the outputs of the operators that compute values. A view
+    (``select``, ``slice``, ``view``, ``as_strided``, ``expand``, ``t``,
+    ``unsqueeze``, ``alias``, ...: ``OpOverload.is_view``) computes nothing,
+    as a JAX primitive that only reshapes computes nothing and so never
+    trips ``jax_debug_nans``: a NaN it shows was made by an earlier, checked
+    operator, or is memory not written yet, such as a row of an ``empty``
+    buffer about to be filled (F8). In-place and ``out=`` operators
+    (``copy_``, ``fill_``, ``index_put_``, ...) are checked: their output is
+    what they wrote."""
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func.overloadpacket.__name__ in _UNINITIALIZED:
+        if func.is_view or func.overloadpacket.__name__ in _UNINITIALIZED:
             return out
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor) and (t.is_floating_point() or t.is_complex()) \

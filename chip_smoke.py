@@ -163,7 +163,26 @@ Phases, one line each, stopping at the first failure:
    rows, the extended columns in their physical ranges, each config's
    kernels against their plain versions within phase 3's gates, each row
    within the script's rule of its ``bandsN-exact`` anchor, and one song
-   streamed in rows of 2^15 counting its beats whole.
+   streamed in rows of 2^15 counting its beats whole;
+15. the mesh (M10, ``bliss_tpu_torch.parallel``), with TF32 asserted off:
+   (a) the main batch through ``analyze_sharded`` under ``for_gpu()`` on
+   (1, 2), (2, 2) and (1, 4) meshes of the card repeated (and of distinct
+   cards where there are as many), every shard on the kernel branch: the
+   prepass, K2 and K3 once a shard and no K1, the rows phase 4's (beats
+   identical, the rest within 5e-4), the warm median of 5 with CUDA events
+   and the peak device memory; (b) K2 with shard 1's real ``halo0`` and K3
+   with its ``frame_offset`` against their plain versions within phase 3's
+   gates; (c) ``scripts/kernel_smoke.py``'s two sharded rows on a (2, 1)
+   mesh against the same configs unsharded; (d) ``for_gpu_hybrid()`` and
+   ``extended=True`` on the (2, 2) mesh against phases 5 and 11 (a)
+   (EXTENDED_GATES); (e) ``analyze_library(mesh=...)`` of the main batch
+   and two long songs (streamed) against the scan without a mesh, a
+   daemon built with a (1, 2) mesh, the CLI's ``scan --mesh 1``
+   (``pipeline.iter_decode`` patched: no libav here); (f) a world-size-1
+   NCCL ``ProcessGroup`` on a file store, its (1, 1) rows the
+   ``LocalGroup``'s bit for bit, the group destroyed after; (g)
+   ``sharded_distance_topk`` over phase 10's D = 4 library on a (4, 1)
+   mesh, equal to ``nearest_neighbors_all``.
 
 The script's total time follows. The last two lines of standard output
 are a JSON line of the kernels and their timings and the card's name and
@@ -2644,8 +2663,8 @@ def stream_modes_part(songs, durs, device, label) -> dict:
 
 def matrix_configs():
     """``scripts/kernel_smoke.py::smoke_configs``'s 12 single-device rows
-    (the two ``bandsN-sharded`` rows wait for the mesh), as (name, the
-    port's config with the same fields, extended)."""
+    (its two ``bandsN-sharded`` rows run on the mesh: phase 15 (c)), as
+    (name, the port's config with the same fields, extended)."""
     from bliss_tpu_torch import AnalysisConfig
 
     base = dict(dtype="float32", amplitude_mode="poly", fused_kernel=True,
@@ -2721,7 +2740,8 @@ def matrix_part(device, label) -> dict:
     config's kernels against their plain versions (not counted); each row
     against its ``bandsN-exact`` anchor under ``kernel_smoke.py``'s rule
     (amplitude, frequency, attack within 2e-3; tempo within two beats).
-    Returns the launches of the analyses and streams, summed."""
+    Returns the launches of the analyses and streams, summed, and each
+    row's."""
     from bliss_tpu_torch import api
     from bliss_tpu_torch.features import streaming
     from bliss_tpu_torch.features.types import PCMBatch
@@ -2729,7 +2749,7 @@ def matrix_part(device, label) -> dict:
     arrays, durs = matrix_batch()
     batch = PCMBatch.from_arrays(arrays, durs, device=device)
     total = dict.fromkeys(launch_counts(), 0)
-    feats = {}
+    feats, by_row = {}, {}
     for name, cfg, ext in matrix_configs():
         t0 = time.perf_counter()
         reset_counts()
@@ -2744,6 +2764,7 @@ def matrix_part(device, label) -> dict:
             raise AssertionError(f"phase 14 (b) {name} launched {launches}; want {sorted(want)} only")
         for k, v in launches.items():
             total[k] += v
+        by_row[name] = launches
         if rows.shape != (len(arrays), 49 if ext else 4) or not np.isfinite(rows).all():
             raise AssertionError(f"phase 14 (b) {name}: rows not finite: {rows[0]}")
         what = ""
@@ -2769,23 +2790,374 @@ def matrix_part(device, label) -> dict:
             raise AssertionError(f"phase 14 (b) {name}: {d} from {nb}-exact (kernel_smoke's rule)")
     log("kernel matrix (phase 14) (b) against each bandsN-exact anchor, max |diff| (tempo, amplitude, "
         "frequency, attack): " + "; ".join(f"{k} " + "/".join(f"{v:.1e}" for v in d) for k, d in dev.items()))
-    return total
+    return total, by_row
 
 
-def m7b_phase(songs, durs, device, label) -> tuple[dict, dict]:
+def m7b_phase(songs, durs, device, label) -> tuple[dict, dict, dict]:
     """Phase 14: (a) the XLA-path modes streamed (M7b) and (b) the single-
     device rows of ``scripts/kernel_smoke.py``'s matrix, whole and streamed;
-    TF32 must be off. Returns each part's launches."""
+    TF32 must be off. Returns each part's launches and (b)'s by row."""
     t0 = time.perf_counter()
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise AssertionError("TF32 is allowed; phase 14's float32 products need full float32")
     a = stream_modes_part(songs, durs, device, label)
     t1 = time.perf_counter()
-    b = matrix_part(device, label)
+    b, rows = matrix_part(device, label)
     log(f"m7b (phase 14) took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f}, "
         f"(b) {time.perf_counter() - t1:.1f}")
-    return a, b
+    return a, b, rows
+
+
+# --- phase 15: the mesh (M10) -----------------------------------------------
+
+MESH_SHAPES = ((1, 2), (2, 2), (1, 4))
+
+
+def mesh_of(shape, device, distinct=False):
+    """A ``shape`` mesh of ``device`` repeated (a CUDA device: cuda:0), or
+    with ``distinct`` of the first cards."""
+    from bliss_tpu_torch.parallel import analysis_mesh
+
+    n = shape[0] * shape[1]
+    if distinct:
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        dev = torch.device(device)
+        devices = [torch.device("cuda", 0) if dev.type == "cuda" else dev] * n
+    return analysis_mesh(*shape, devices=devices)
+
+
+def mesh_ms(fn, device, reps: int = 5) -> str:
+    """``fn``'s warm median of ``reps``: CUDA events on the card, the host's
+    clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        return f"{cuda_ms(fn, reps):.3f} ms (CUDA events)"
+    return f"{statistics.median(host_times(fn, device, reps)) * 1e3:.3f} ms (host clock)"
+
+
+def within(label, got, ref, what, tol=5e-4):
+    """``same_scores`` (beats identical), and the other columns within
+    ``tol``; returns their max |diff|."""
+    err = same_scores(label, got, ref, what)
+    if not (err <= tol).all():
+        raise AssertionError(f"{label}: amplitude/frequency/attack differ from {what} by {err} > {tol}")
+    return err
+
+
+def mesh_counts(label, n_shards, k1=0) -> dict:
+    """The launches since the last ``reset_counts``: the prepass, K2 and K3
+    once a shard and K1 ``k1`` times, or raise."""
+    got = launch_counts()
+    want = {"prepass": n_shards, "fused_all": k1, "fused_stats": n_shards, "stft_power": n_shards}
+    if got != want:
+        raise AssertionError(f"{label} launched {got}; want {want}")
+    return got
+
+
+def mesh_rows_part(batch, durations, out, device, label) -> dict:
+    """Phase 15 (a): the main batch through ``analyze_sharded`` under
+    ``for_gpu()`` on each of MESH_SHAPES over one card repeated (and over
+    distinct cards where there are enough): every shard on the kernel
+    branch, the prepass, K2 and K3 once a shard; the rows phase 4's (beats
+    identical, the rest within 5e-4); the warm median of 5, the peak device
+    memory. Returns each mesh's launches."""
+    from bliss_tpu_torch import AnalysisConfig
+    from bliss_tpu_torch.parallel import analyze_sharded
+
+    cfg = AnalysisConfig.for_gpu()
+    meshes = [(f"{d}x{q}", mesh_of((d, q), device)) for d, q in MESH_SHAPES]
+    cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 0
+    meshes += [(f"{d}x{q} on {d * q} cards", mesh_of((d, q), device, distinct=True))
+               for d, q in MESH_SHAPES if d * q <= cards]
+    launches = {}
+    for name, mesh in meshes:
+        Ls = batch.samples.shape[1] // mesh.shape["seq"]
+        reset_peak(device)
+        reset_counts()
+        rows = analyze_sharded(batch, mesh, cfg)
+        launches[name] = mesh_counts(f"mesh (phase 15) (a) {name}", mesh.size)
+        peak = peak_text(device)
+        err = within(f"mesh (phase 15) (a) {name}", rows, out, "phase 4's unsharded rows")
+        log(f"mesh (phase 15) (a) {name} analyze_sharded B={MAIN_B} L=2^23 (shards of {Ls} samples, "
+            f"the kernel branch): launches {launches[name]}; beat counts identical to phase 4's "
+            f"unsharded rows, max |diff| amplitude {err[0]:.2e} frequency {err[1]:.2e} attack "
+            f"{err[2]:.2e}; warm median of 5 {mesh_ms(lambda: analyze_sharded(batch, mesh, cfg), device)} "
+            f"(the rows' copy back included), {peak} {label}")
+    return launches
+
+
+def mesh_shard_part(batch, device, label) -> dict:
+    """Phase 15 (b): K2 and K3 on shard 1 of the (1, 2) mesh, with its real
+    halo0 (shard 0's last 16 samples) and frame offset, against their plain
+    versions within phase 3's gates; each timed. Returns {kernel: (errors,
+    ms, plain_ms)}."""
+    from bliss_tpu_torch.kernels import fused_stats as fs
+    from bliss_tpu_torch.kernels import stft
+    from bliss_tpu_torch.parallel import shard_batch
+    from bliss_tpu_torch.parallel.mesh import pad_batch
+
+    mesh = mesh_of((1, 2), device)
+    shards = shard_batch(pad_batch(batch, mesh), mesh)
+    first, (shard, n, _) = shards[(0, 0)].samples, shards[(0, 1)]
+    Ls = shard.shape[1]
+    alpha, beta, _ = fs.normalization(batch.samples, batch.n_samples)  # the shards' sums, psummed
+    # shard 1 and the block after it on the ring (shard 0's first hop)
+    ext = torch.cat([shard, first[:, :fs.BLK]], dim=1)
+    halo0 = first[:, -16:].contiguous()
+    if not bool((halo0 != 0).any()):
+        raise AssertionError("phase 15 (b): shard 1's halo0 is all zero")
+    offset = Ls // stft.FRAME
+    timed = torch.device(device).type == "cuda"
+    k2 = kernel_vs_plain(
+        f"(phase 15) (b) K2 on shard 1 of the 1x2 mesh, B={MAIN_B} L={Ls}+256, a nonzero halo0",
+        lambda: fs.fused_stats_call(ext, alpha, beta, halo0),
+        lambda: fs.fused_stats_reference(ext, alpha, beta, halo0),
+        lambda k, p: stats_errors("phase 15 (b) K2", k, p), timed)
+    k3 = kernel_vs_plain(
+        f"(phase 15) (b) K3 on shard 1 of the 1x2 mesh, B={MAIN_B} L={Ls}, frame_offset {offset}",
+        lambda: stft.stft_power(shard, n, frame_offset=offset),
+        lambda: stft.stft_power_reference(shard, n, frame_offset=offset),
+        lambda k, p: power_errors("phase 15 (b) K3", k, p), timed)
+    if timed:
+        log(f"mesh (phase 15) (b) warm median of 5 on shard 1: K2 {k2[1]:.3f} ms (plain {k2[2]:.3f} ms), "
+            f"K3 {k3[1]:.3f} ms (plain {k3[2]:.3f} ms) {label}")
+    return {"fused_stats": k2, "stft_power": k3}
+
+
+def mesh_matrix_part(device, label) -> dict:
+    """Phase 15 (c): ``scripts/kernel_smoke.py``'s two sharded rows
+    (``bands1-sharded``, ``bands5-sharded``) on its B=8, L=2^17 batch over a
+    (2, 1) mesh: the prepass, K2 and K3 once a shard, the rows those of the
+    same configs unsharded (beats identical, the rest within 5e-4).
+    Returns each row's launches."""
+    from bliss_tpu_torch import AnalysisConfig, api
+    from bliss_tpu_torch.features.types import PCMBatch
+    from bliss_tpu_torch.parallel import analyze_sharded
+
+    arrays, durs = matrix_batch()
+    batch = PCMBatch.from_arrays(arrays, durs, device=device)
+    mesh = mesh_of((2, 1), device)
+    rows = {}
+    for nb, fbk in ((1, "firwin"), (5, "reference5")):
+        name = f"bands{nb}-sharded"
+        cfg = AnalysisConfig(dtype="float32", amplitude_mode="poly", fused_kernel=True,
+                             tempo_finish="device_exact", filterbank=fbk)
+        reset_counts()
+        got = analyze_sharded(batch, mesh, cfg)
+        rows[name] = mesh_counts(f"phase 15 (c) {name}", mesh.size)
+        err = within(f"phase 15 (c) {name}", got, api.analyze_features(batch, cfg),
+                     "the same config unsharded")
+        log(f"mesh (phase 15) (c) {name} B=8 L=2^17 on a 2x1 mesh: launches {rows[name]}; beats "
+            f"identical to the config unsharded, max |diff| {err.max():.2e} {label}")
+    return rows
+
+
+def mesh_modes_part(batch, durations, outh, ext_rows, device, label) -> None:
+    """Phase 15 (d): on the (2, 2) mesh, ``for_gpu_hybrid()`` (the float64
+    host finish of the gathered energies) held to phase 5's hybrid rows,
+    and ``for_gpu()`` with ``extended=True`` (each shard a streamed row of
+    the extended stage) held to phase 11 (a)'s rows within EXTENDED_GATES."""
+    from bliss_tpu_torch import AnalysisConfig
+    from bliss_tpu_torch.parallel import analyze_sharded, analyze_sharded_async
+
+    mesh = mesh_of((2, 2), device)
+    reset_counts()
+    hyb = analyze_sharded(batch, mesh, AnalysisConfig.for_gpu_hybrid())
+    counts = mesh_counts("phase 15 (d) hybrid", 4)
+    err = within("phase 15 (d) hybrid", hyb, outh, "phase 5's hybrid rows")
+    log(f"mesh (phase 15) (d) for_gpu_hybrid() on the 2x2 mesh: launches {counts}; beats identical "
+        f"to phase 5's hybrid rows, max |diff| {err.max():.2e} {label}")
+    reset_peak(device)
+    reset_counts()
+    ext = analyze_sharded_async(batch, mesh, AnalysisConfig.for_gpu(), extended=True)()
+    counts = mesh_counts("phase 15 (d) extended", 4)
+    err = within("phase 15 (d) extended core", ext[:, :4], ext_rows[:, :4], "phase 11 (a)'s rows")
+    errs = ext_gates("phase 15 (d) extended", ext[:, 4:], ext_rows[:, 4:], durations)
+    bpm_counts_beats("phase 15 (d) extended", ext, durations)
+    log(f"mesh (phase 15) (d) for_gpu() extended on the 2x2 mesh: launches {counts}; the core "
+        f"columns' beats identical to phase 11 (a)'s, max |diff| {err.max():.2e}; the 45 columns "
+        f"{gates_text(errs)}; {peak_text(device)} {label}")
+
+
+def mesh_entry_part(arrays, durations, longs, long_durs, device, label) -> None:
+    """Phase 15 (e), the entry points over a (1, 2) mesh, ``pipeline.
+    iter_decode`` patched to yield the songs (the card's machine has no
+    libav development files, and the decode is phase 8's and 13's):
+    ``analyze_library(mesh=...)`` of the main batch's songs and two of
+    phase 9's long songs (streamed on the scan's device) against the same
+    scan without the mesh; a daemon built with the mesh answering
+    ``analyze``; the CLI's ``scan --mesh 1``. Rows: beats identical, the
+    rest within 5e-4."""
+    import contextlib
+    import csv
+    import io
+    import tempfile
+
+    from bliss_tpu_torch import cli, pipeline
+    from bliss_tpu_torch.io import DecodedAudio
+    from bliss_tpu_torch.server import AnalysisServer, request
+
+    songs = list(arrays) + list(longs)
+    durs = list(durations) + list(long_durs)
+    names = [f"song{i:02d}.flac" for i in range(len(songs))]
+    pcm = {p: DecodedAudio(s, 2, SR, 0, 2, 0, d, p, "", "", "", "", "")
+           for p, s, d in zip(names, songs, durs)}
+    mesh = mesh_of((1, 2), device)
+    patch = mock.patch.object(pipeline, "iter_decode",
+                              lambda paths, **kw: ((p, pcm[p]) for p in paths))
+    with patch:
+        scans = {}
+        for what, m in (("without a mesh", None), ("on the 1x2 mesh", mesh)):
+            reset_counts()
+            t0 = time.perf_counter()
+            r = pipeline.analyze_library(names, batch_size=MAIN_B, mesh=m, device=device,
+                                         handle_sigint=False)
+            secs = time.perf_counter() - t0
+            if not r.ok.all() or r.errors:
+                raise AssertionError(f"phase 15 (e) analyze_library {what}: {r.errors}")
+            scans[what] = (r, launch_counts(), secs)
+        (flat, _, flat_s), (meshed, counts, mesh_s) = scans.values()
+        if not (counts["fused_stats"] and counts["stft_power"] and counts["prepass"]):
+            raise AssertionError(f"phase 15 (e) the meshed scan launched {counts}")
+        if meshed.stats["streaming"]["count"] != len(longs):
+            raise AssertionError(f"phase 15 (e) streamed {meshed.stats['streaming']['count']} songs")
+        err = within("phase 15 (e) analyze_library", meshed.features, flat.features, "the scan without a mesh")
+        log(f"mesh (phase 15) (e) analyze_library(mesh=1x2) of {len(songs)} songs ({len(longs)} long, "
+            f"streamed on {device}): launches {counts}; beats identical to the scan without a mesh, "
+            f"max |diff| {err.max():.2e}; {mesh_s:.2f} s, {flat_s:.2f} s without the mesh {label}")
+
+        with tempfile.TemporaryDirectory() as d:
+            sock = os.path.join(d, "m.sock")
+            server = AnalysisServer(sock, batch_size=8, mesh=mesh, device=device)
+            server.warmup()
+            t = threading.Thread(target=server.serve_forever, daemon=True)
+            t.start()
+            try:
+                if not server.wait_ready(30):
+                    raise AssertionError("phase 15 (e): the meshed daemon did not bind")
+                reset_counts()
+                r = request({"op": "analyze", "paths": names[:8]}, sock, timeout=600)
+                counts = launch_counts()
+            finally:
+                server.stop()
+                t.join(timeout=60)
+            if not r.get("ok") or r.get("errors"):
+                raise AssertionError(f"phase 15 (e) the meshed daemon: {r}")
+            got = np.array([r["features"][p] for p in names[:8]], np.float32)
+            err = within("phase 15 (e) daemon", got, flat.features[:8], "the scan without a mesh")
+            log(f"mesh (phase 15) (e) a daemon with a 1x2 mesh (warmup through the mesh) answered "
+                f"analyze of 8 songs: launches {counts}; beats identical to the unmeshed scan's rows, "
+                f"max |diff| {err.max():.2e} {label}")
+
+            out_csv = os.path.join(d, "scan.csv")
+            reset_counts()
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(["--device", str(device), "scan", *names[:8], "--mesh", "1",
+                               "--batch-size", "8", "-o", out_csv])
+            counts = launch_counts()
+            with open(out_csv, newline="") as f:
+                rows = list(csv.reader(f, delimiter=";"))[1:]
+            if rc != 0 or [r_[0] for r_ in rows] != names[:8]:
+                raise AssertionError(f"phase 15 (e) scan --mesh 1: rc {rc}, {len(rows)} rows")
+            got = np.array([[float(v) for v in r_[1:5]] for r_ in rows])
+            # "%f" keeps 6 decimals: the beats as counts, the rest within 5e-4
+            ref = flat.features[:8].astype(np.float64)
+            if not np.array_equal(beat_counts(got, durs[:8]), beat_counts(ref, durs[:8])):
+                raise AssertionError("phase 15 (e) scan --mesh 1: beat counts differ from the unmeshed scan")
+            err = np.abs(got[:, 1:] - ref[:, 1:]).max(axis=0)
+            if not (err <= 5e-4).all():
+                raise AssertionError(f"phase 15 (e) scan --mesh 1: rows differ by {err}")
+            log(f"mesh (phase 15) (e) the CLI's scan --mesh 1 of 8 songs: launches {counts}; beats "
+                f"identical to the unmeshed scan's rows, max |diff| {err.max():.2e} {label}")
+
+
+def mesh_nccl_part(batch, device, label) -> None:
+    """Phase 15 (f): ``init_distributed`` on a file store at world size 1
+    with NCCL, then the main batch over the (1, 1) mesh of its
+    ``ProcessGroup``: the rows of the ``LocalGroup`` (1, 1) mesh bit for
+    bit; the group is destroyed after."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from bliss_tpu_torch import AnalysisConfig
+    from bliss_tpu_torch.parallel import analyze_sharded, init_distributed, process_mesh
+
+    cfg = AnalysisConfig.for_gpu()
+    local = analyze_sharded(batch, mesh_of((1, 1), device), cfg)
+    with tempfile.TemporaryDirectory() as d:
+        init_distributed(f"file://{os.path.join(d, 'store')}", 1, 0, device=device)
+        try:
+            if not tdist.is_initialized():
+                raise AssertionError("phase 15 (f): init_distributed formed no group")
+            backend = tdist.get_backend()
+            reset_counts()
+            got = analyze_sharded(batch, process_mesh(1, torch.device(device)), cfg)
+            counts = mesh_counts("phase 15 (f)", 1)
+        finally:
+            tdist.destroy_process_group()
+    if not np.array_equal(got, local):
+        raise AssertionError(f"phase 15 (f): the ProcessGroup's rows differ from the LocalGroup's by "
+                             f"{np.abs(got - local).max()}")
+    log(f"mesh (phase 15) (f) a {backend} ProcessGroup of world size 1 (file store): the 1x1 mesh's "
+        f"B={MAIN_B} L=2^23 rows equal the LocalGroup's bit for bit; launches {counts}; the group "
+        f"destroyed {label}")
+
+
+def mesh_topk_part(vectors, device, label) -> None:
+    """Phase 15 (g): ``sharded_distance_topk`` (k=5) over phase 10's D = 4
+    library of SIM_N rows on a (4, 1) mesh: distances and indices equal to
+    ``nearest_neighbors_all``'s, with its time beside the unsharded one's."""
+    from bliss_tpu_torch.parallel import sharded_distance_topk
+    from bliss_tpu_torch.sim import nearest_neighbors_all
+
+    f, _ = sim_library(vectors, SIM_N, 4, SIM_DUPES, np.random.default_rng(SEED + 5))
+    fc = torch.from_numpy(f).to(device)
+    mesh = mesh_of((4, 1), device)
+    d, idx = sharded_distance_topk(fc, mesh, SIM_K, block=SIM_BLOCK)
+    d0, idx0 = nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK)
+    if not (torch.equal(d, d0.cpu()) and torch.equal(idx, idx0.cpu())):
+        raise AssertionError("phase 15 (g): sharded_distance_topk differs from nearest_neighbors_all")
+    t_mesh = times_text(host_times(lambda: sharded_distance_topk(fc, mesh, SIM_K, block=SIM_BLOCK), device))
+    t_flat = times_text(host_times(lambda: nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK), device))
+    log(f"mesh (phase 15) (g) sharded_distance_topk N={SIM_N} D=4 k={SIM_K} on a 4x1 mesh: distances "
+        f"and indices equal to nearest_neighbors_all's; {t_mesh}; nearest_neighbors_all {t_flat} {label}")
+
+
+def mesh_phase(arrays, durations, out, outh, ext_rows, longs, long_durs, device, label):
+    """Phase 15: the mesh (M10), (a)-(g); TF32 must be off. Returns (a)'s
+    launches by mesh, (b)'s kernel-vs-plain results and (c)'s launches by
+    row."""
+    from bliss_tpu_torch.features.types import PCMBatch
+
+    t0 = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is allowed; phase 15's float32 products need full float32")
+    batch = PCMBatch.from_arrays(arrays, durations, device=device)
+    secs = {}
+    launches = mesh_rows_part(batch, durations, out, device, label)
+    secs["a"] = time.perf_counter() - t0
+    shard = mesh_shard_part(batch, device, label)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    matrix = mesh_matrix_part(device, label)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    mesh_modes_part(batch, durations, outh, ext_rows, device, label)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    mesh_entry_part(arrays, durations, longs, long_durs, device, label)
+    secs["e"] = time.perf_counter() - t0 - sum(secs.values())
+    if torch.device(device).type == "cuda":
+        mesh_nccl_part(batch, device, label)
+    else:
+        log("mesh (phase 15) (f) the NCCL ProcessGroup: not run (no card)")
+    secs["f"] = time.perf_counter() - t0 - sum(secs.values())
+    del batch
+    mesh_topk_part(ext_rows, device, label)
+    secs["g"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"mesh (phase 15) took {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return launches, shard, matrix
 
 
 def main() -> int:
@@ -3074,8 +3446,17 @@ def main() -> int:
 
     # 14. the XLA-path modes streamed (M7b) on phase 9's songs, then the
     # single-device rows of scripts/kernel_smoke.py's matrix
-    m7b_launches, matrix_launches = m7b_phase(long_pcm, long_durs, "cuda", label)
+    m7b_launches, matrix_launches, matrix_rows = m7b_phase(long_pcm, long_durs, "cuda", label)
+
+    # 15. the mesh (M10): the main batch over three meshes of the card,
+    # kernel_smoke's two sharded rows, the entry points, NCCL, the top-k
+    mesh_launches, mesh_shard, mesh_matrix = mesh_phase(
+        arrays, durations, out, outh, ext_rows["main"], *serve_long[:2], "cuda", label)
     del long_pcm, serve_long
+    for row, counts in mesh_matrix.items():
+        matrix_rows[row] = counts
+        for k, v in counts.items():
+            matrix_launches[k] += v
 
     entries = []
     for name, (errs, ms, plain_ms) in kernels.items():
@@ -3137,6 +3518,12 @@ def main() -> int:
             e["serve_launches"] = serve_launches[e["name"]]
             e["m7b_launches"] = m7b_launches[e["name"]]
             e["matrix_launches"] = matrix_launches[e["name"]]
+            e["matrix_rows"] = [row for row, c in matrix_rows.items() if c[e["name"]]]
+            e["mesh_launches"] = {m: c[e["name"]] for m, c in mesh_launches.items()}
+            if e["name"] in mesh_shard:
+                errs, ms, plain_ms = mesh_shard[e["name"]]
+                e["mesh_shard"] = {"max_abs_err": max(a for a, _ in errs.values()),
+                                   "ms": ms, "plain_ms": plain_ms}
     log(f"chip_smoke took {time.perf_counter() - t_script:.1f} s, the builds included")
     log(json.dumps({"kernels": entries}))
     log(card)

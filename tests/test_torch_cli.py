@@ -249,6 +249,7 @@ def test_neighbors_csv_is_nearest_neighbors_all(store_dir, tmp_path):
     assert [r[2::2] for r in rows] == [[f"{x:f}" for x in row] for row in d.tolist()]
 
 
+# the mesh runs of ROADMAP item M10 (once refused with status 2)
 UNPORTED = [
     (["scan", "LIB", "--store", "S", "--mesh", "2"], "M10"),
     (["radio", "LIB", "--store", "S", "--mesh", "4x2"], "M10"),
@@ -259,12 +260,50 @@ UNPORTED = [
 
 @pytest.mark.parametrize("argv,item", UNPORTED, ids=lambda x: "-".join(x) if isinstance(x, list) else x)
 def test_unported_options_exit_2_before_any_decode_or_store_write(library, tmp_path, capsys, argv, item):
-    store = tmp_path / "store"
+    """Formerly the refusal of ``--mesh`` (ROADMAP item M10): on ``--device
+    cpu`` each command runs over a mesh of the CPU repeated ('2': 2 x 1, its
+    shards on the kernels; '4x2': shards of 49 152 samples, the XLA
+    branch) and analyzes the library's songs as the scan without a mesh:
+    beats identical, the rest within 5e-4 (the store's rows, or
+    ml-analyze's CSV)."""
+    from bliss_tpu_torch.store import similarity_rows
+
+    store, out = tmp_path / "store", tmp_path / "out"
     sub = {"F": library["files"][0], "LIB": str(library["lib"]), "S": str(store)}
-    with mock.patch.object(pipeline, "iter_decode", side_effect=AssertionError("decoded")), \
-            mock.patch.object(api, "_decode", side_effect=AssertionError("decoded")):
-        assert cli.main(["--device", "cpu", *[sub.get(a, a) for a in argv]]) == 2
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
+    extra = {"scan": ["-o", str(out)], "playlist": ["-o", str(out)],
+             "radio": ["--output-dir", str(tmp_path)], "ml-analyze": []}[argv[0]]
+    capsys.readouterr()
+    assert cli.main(["--device", "cpu", *[sub.get(a, a) for a in argv], *extra]) == 0
+    files, want = library["files"], library["port"].features
+    if argv[0] == "ml-analyze":
+        (line,) = capsys.readouterr().out.splitlines()
+        name, *cols = line.split(";")
+        # "%f" keeps 6 decimals, far inside a beat (4 / duration)
+        got, rows, beat_tol = np.array([[float(c) for c in cols]]), want[:1], 1e-5
+        assert name == "song0"
+    else:
+        names, got = similarity_rows(FeatureStore(str(store)))
+        rows, beat_tol = want[[files.index(n) for n in names]], 0
+        assert sorted(names) == sorted(files)
+    np.testing.assert_allclose(got[:, 0], rows[:, 0], rtol=0, atol=beat_tol)
+    np.testing.assert_allclose(got, rows, rtol=0, atol=5e-4)
+
+
+def test_mesh_on_cuda_needs_its_devices(library, tmp_path, monkeypatch, capsys):
+    """``--mesh`` under ``--device cuda`` takes the first N·M CUDA devices:
+    too few stop the command with bliss_tpu's text before any decode or
+    store write (the device count patched: this machine has no GPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    store = tmp_path / "store"
+    with mock.patch.object(pipeline, "iter_decode", side_effect=AssertionError("decoded")):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["--device", "cuda", "scan", str(library["lib"]), "--store", str(store),
+                      "--mesh", "2x2"])
+    assert str(e.value.code) == "--mesh '2x2' needs 4 devices, have 2"
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--device", "cpu", "scan", str(library["lib"]), "--mesh", "2x2x1"])
+    assert "expected 'N' or 'NxM' (data x seq shards)" in str(e.value.code)
     assert not store.exists()
 
 

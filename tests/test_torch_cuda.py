@@ -447,3 +447,55 @@ def test_daemon_on_gpu_analyzes_through_the_kernels(cuda, tmp_path, monkeypatch)
         server.stop()
         t.join(timeout=30)
     assert not t.is_alive()
+
+
+def _mesh_batch(device):
+    """Two songs whose 2-way sequence shards (81 920 samples) take the
+    kernels."""
+    songs, durs = _songs()
+    return PCMBatch.from_arrays(songs, durs, pad_multiple=1024 * 160, device=device)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_mesh_on_gpu_launches_k2_k3_a_shard_and_matches_cpu(cuda, shape):
+    """The mesh over ``cuda`` repeated: the prepass, K2 and K3 once a shard;
+    the rows are the unsharded GPU rows' (beats identical, the rest within
+    5e-4) and the CPU mesh's (within 1e-4)."""
+    from bliss_tpu_torch.parallel import analysis_mesh, analyze_sharded
+
+    cfg = AnalysisConfig.for_gpu()
+    n = shape[0] * shape[1]
+    before = (fused_stats.PREPASS_LAUNCHES, fused_stats.LAUNCHES, stft.LAUNCHES)
+    got = analyze_sharded(_mesh_batch(cuda), analysis_mesh(*shape, devices=[cuda] * n), cfg)
+    after = (fused_stats.PREPASS_LAUNCHES, fused_stats.LAUNCHES, stft.LAUNCHES)
+    # a (2, 2) mesh pads the two songs to one a data row: 2 x 2 shards
+    assert tuple(a - b for a, b in zip(after, before)) == (n, n, n)
+    flat = analyze_batch(_mesh_batch(cuda), cfg).cpu().numpy()
+    assert np.array_equal(got[:, 0], flat[:, 0])
+    np.testing.assert_allclose(got, flat, rtol=0, atol=5e-4)
+    on_cpu = analyze_sharded(_mesh_batch("cpu"), analysis_mesh(*shape, devices=["cpu"] * n), cfg)
+    assert np.array_equal(got[:, 0], on_cpu[:, 0])
+    np.testing.assert_allclose(got, on_cpu, rtol=0, atol=1e-4)
+
+
+def test_nccl_process_group_of_one_matches_the_local_mesh(cuda, tmp_path):
+    """``init_distributed`` on a file store at world size 1 with NCCL: the
+    (1, 1) mesh over the ``ProcessGroup`` gives the ``LocalGroup`` mesh's
+    rows bit for bit."""
+    import torch.distributed as tdist
+
+    from bliss_tpu_torch.parallel import analysis_mesh, analyze_sharded_async
+    from bliss_tpu_torch.parallel.distributed import init_distributed, process_mesh
+
+    cfg = AnalysisConfig.for_gpu()
+    init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device=cuda)
+    assert tdist.is_initialized() and tdist.get_backend() == "nccl"
+    try:
+        mesh = process_mesh(1, cuda)
+        assert mesh.process is not None
+        got = analyze_sharded_async(_mesh_batch(cuda), mesh, cfg, extended=True)()
+    finally:
+        tdist.destroy_process_group()
+    want = analyze_sharded_async(_mesh_batch(cuda), analysis_mesh(1, 1, devices=[cuda]), cfg,
+                                 extended=True)()
+    assert np.array_equal(got, want)

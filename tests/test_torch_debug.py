@@ -3,6 +3,7 @@ against ``bliss_tpu``'s (``tests/test_utils.py:53-77``): ``validate_features``,
 ``nan_debugging`` as a PyTorch dispatch mode, ``trace_annotation`` and
 ``device_trace`` over ``torch.profiler``."""
 
+import contextlib
 import json
 import os
 
@@ -54,15 +55,52 @@ def test_nan_debugging_context():
     assert torch.isnan(torch.sqrt(torch.tensor([-1.0]))).all()
 
 
+@contextlib.contextmanager
+def _nan_in_unwritten_memory():
+    """Every buffer the allocator hands out unwritten (``empty`` and its
+    kin) holds NaN: PyTorch's deterministic mode fills it so. That is the
+    worst heap a test worker can leave behind, made certain: NaN-filled
+    tensors that an earlier test freed reach the same buffers only now and
+    then (F8)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def test_views_of_unwritten_memory_are_not_results():
+    """F8: a view computes nothing, so ``t[0]`` of a NaN tensor made outside
+    the mode does not raise; a product of it does."""
+    t = torch.full((3, 4), float("nan"))
+    with nan_debugging():
+        row = t[0]
+        t.view(-1)[:2].unsqueeze(0).expand(2, 2)
+        t.t()[1:3].diagonal()
+        with pytest.raises(FloatingPointError, match="aten.mul"):
+            row * 1
+        # an in-place write is checked: its output is what it wrote
+        with pytest.raises(FloatingPointError, match="aten.copy_"):
+            torch.zeros(4).copy_(row)
+    assert torch.isnan(row).all()
+
+
 def test_main_path_produces_no_nan():
     """The port's main path on the CPU (the kernels' plain versions) runs
-    under nan_debugging: no operator of it yields a NaN."""
+    under nan_debugging: no operator of it yields a NaN, even where every
+    buffer it takes unwritten holds NaN (F8)."""
     rng = np.random.RandomState(0)
     t = np.arange(30_000)
     song = (8000 * np.sin(2 * np.pi * t / 40.0) + 500 * rng.randn(t.size)).astype(np.int16)
     want = analyze_pcm([song], [1], cfg=AnalysisConfig.for_gpu(), device="cpu")
-    with nan_debugging():
-        got = analyze_pcm([song], [1], cfg=AnalysisConfig.for_gpu(), device="cpu")
+    with _nan_in_unwritten_memory():
+        assert torch.isnan(torch.empty(4)).all()
+        with nan_debugging():
+            got = analyze_pcm([song], [1], cfg=AnalysisConfig.for_gpu(), device="cpu")
     np.testing.assert_array_equal(got, want)
 
 

@@ -14,8 +14,10 @@ half of ``features/tempo.py``, ``dsp/framing.py``, ``dsp/iir.lfilter_scan``)
 under ``AnalysisConfig()`` and ``for_parity()`` and the three ``Song``
 analyzer methods, and runs the similarity (``kmeans``,
 ``nearest_neighbors_all``) and the port's CLI (``store neighbors`` on a
-small store), and imports the serving layer (``server``, ``http_gateway``,
-``gui``, ``utils.debug``) and answers a status request."""
+small store), imports the serving layer (``server``, ``http_gateway``,
+``gui``, ``utils.debug``) and answers a status request, and imports the
+mesh (``bliss_tpu_torch.parallel``) and analyzes a batch over a 2x2 mesh of
+the CPU."""
 
 import os
 import subprocess
@@ -134,6 +136,14 @@ srv = server.AnalysisServer(device="cpu")
 st = srv._handle_line(b'{"op": "status"}')
 assert st["ok"] and st["backend"] == "cpu" and st["devices"] == 1, st
 assert http_gateway.HttpGateway and gui.ScanJob and debug.nan_debugging
+from bliss_tpu_torch.features.types import PCMBatch
+from bliss_tpu_torch.parallel import analysis_mesh, analyze_sharded, dryrun, init_distributed, pod_mesh
+f64 = AC(dtype="float64")
+meshed = analyze_sharded(PCMBatch.from_arrays([long_song, song], [3, 1], device="cpu"),
+                         analysis_mesh(2, 2, devices=["cpu"] * 4), f64)
+flat = bliss_tpu_torch.analyze_pcm([long_song, song], [3, 1], cfg=f64, device="cpu")
+assert np.abs(meshed - flat).max() <= 2e-6, (meshed, flat)
+assert dryrun.dryrun_multichip and init_distributed and pod_mesh
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())

@@ -229,10 +229,24 @@ def test_a_long_song_is_logged_and_stays_on_the_bucket_path(scans):
     np.testing.assert_allclose(r.features[5, 1:], ref.features[5, 1:], rtol=0, atol=5e-4)
 
 
-@pytest.mark.parametrize("kwargs, item", [({"mesh": object()}, "M10")], ids=["mesh"])
-def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pipeline.analyze_library([], device="cpu", **kwargs)
+@pytest.mark.parametrize("shape", [(2, 1)], ids=["mesh"])
+def test_unported_options_raise(scans, shape):
+    """Formerly the M10 refusal: ``analyze_library`` with a mesh
+    (``[cpu] * 2``: the 98304 bucket's shards take the kernels, the clip's
+    the XLA branch) gives the rows of the scan without one, a long song
+    streamed on the scan's device (beats identical, the rest within
+    5e-4)."""
+    from bliss_tpu_torch.parallel import analysis_mesh
+
+    mesh = analysis_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
+    r = pipeline.analyze_library(scans["files"], cfg=AnalysisConfig.for_gpu(), batch_size=2,
+                                 mesh=mesh, device="cpu", long_song_samples=90_000,
+                                 handle_sigint=False)
+    port = scans["port"]
+    assert r.ok.tolist() == port.ok.tolist() and r.errors == port.errors
+    assert r.stats["streaming"]["count"] == 1
+    np.testing.assert_array_equal(r.features[r.ok, 0], port.features[port.ok, 0])
+    np.testing.assert_allclose(r.features[r.ok], port.features[port.ok], rtol=0, atol=5e-4)
 
 
 @pytest.mark.parametrize("name", ["main", "hybrid"])

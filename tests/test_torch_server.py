@@ -301,9 +301,41 @@ def test_cli_serve_without_a_gpu_exits_before_binding(tmp_path, monkeypatch, cap
         cli.main(["serve", "--socket", str(sock), "--store", str(store)])
     assert "no CUDA device for device='cuda'" in str(e.value.code)
     assert not sock.exists() and not store.exists()
-    # --mesh is ROADMAP M10: status 2 before anything else
-    assert cli.main(["--device", "cpu", "serve", "--socket", str(sock), "--mesh", "4"]) == 2
-    assert "M10" in capsys.readouterr().err and not sock.exists()
+    # a mesh of more CUDA devices than the card count: stopped before the
+    # store, warmup and bind too
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["serve", "--socket", str(sock), "--store", str(store), "--mesh", "4"])
+    assert str(e.value.code) == "--mesh '4' needs 4 devices, have 1"
+    assert not sock.exists() and not store.exists()
+
+
+def test_cli_serve_with_a_mesh_runs_the_daemon(tmp_path):
+    """``serve --mesh 2x2`` on the CPU: warmup through the mesh, then the
+    daemon answers ``analyze`` with the unmeshed features (beats identical,
+    the rest within 5e-4)."""
+    from bliss_tpu_torch import cli
+
+    sock = str(tmp_path / "s.sock")
+    out = []
+    t = threading.Thread(target=lambda: out.append(cli.main(
+        ["--device", "cpu", "serve", "--socket", sock, "--batch-size", "4", "--mesh", "2x2"])),
+        daemon=True)
+    t.start()
+    deadline = time.time() + 60
+    while not os.path.exists(sock) and time.time() < deadline:
+        time.sleep(0.05)
+    a = _write_wav(tmp_path / "a.wav", seconds=2.0)
+    r = request({"op": "analyze", "paths": [a]}, sock, timeout=120)
+    assert r["ok"] and r["errors"] == {}
+    want = pipeline.analyze_library([a], device="cpu", handle_sigint=False).features[0]
+    got = np.asarray(r["features"][a], np.float32)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got, want, atol=5e-4)
+    assert request({"op": "shutdown"}, sock, timeout=30)["ok"]
+    t.join(timeout=30)
+    assert not t.is_alive() and out == [0]
 
 
 def test_cli_serve_runs_the_daemon(tmp_path):
@@ -620,19 +652,30 @@ def test_concurrent_mixed_clients(served):
             assert r["paths"][0] == a
 
 
-def test_daemon_with_mesh_refuses_until_m10(tmp_path):
-    """A daemon given a mesh answers each analysis with analyze_library's
-    M10 refusal (the sharded path is ROADMAP M10), and warmup refuses."""
-    sock = str(tmp_path / "mesh.sock")
-    meshed = AnalysisServer(sock, store=None, batch_size=8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        meshed.warmup()
+def test_daemon_with_mesh_refuses_until_m10(served, tmp_path):
+    """Formerly the M10 refusal; now ``tests/test_server.py``'s
+    ``test_daemon_with_mesh_matches_unsharded``: a daemon built with an
+    ``analysis_mesh(4, 2)`` of the CPU warms up through the mesh and serves
+    the plain daemon's features (beats identical, the rest within 5e-4:
+    its shards of 32 768 samples take the mesh's XLA branch where the plain
+    daemon takes K1)."""
+    from bliss_tpu_torch.parallel import analysis_mesh
+
+    _, sock, _, _ = served
+    a = _write_wav(tmp_path / "a.wav", freq=500.0)
+    plain = request({"op": "analyze", "paths": [a]}, sock, timeout=60)
+    assert plain["ok"]
+    msock = str(tmp_path / "mesh.sock")
+    meshed = AnalysisServer(msock, store=None, batch_size=8,
+                            mesh=analysis_mesh(4, 2, devices=["cpu"] * 8), device="cpu")
+    meshed.warmup()
     t = _serve(meshed)
     try:
-        a = _write_wav(tmp_path / "a.wav", freq=500.0)
-        r = request({"op": "analyze", "paths": [a]}, sock, timeout=60)
-        assert not r["ok"] and "M10" in r["error"]
-        assert request({"op": "status"}, sock, timeout=30)["backend_health"]["healthy"]
+        r = request({"op": "analyze", "paths": [a]}, msock, timeout=120)
+        assert r["ok"] and r["errors"] == {}
+        assert r["features"][a][0] == plain["features"][a][0]
+        np.testing.assert_allclose(r["features"][a], plain["features"][a], atol=5e-4)
+        assert request({"op": "status"}, msock, timeout=30)["backend_health"]["healthy"]
     finally:
         _stop(meshed, t)
 
