@@ -182,7 +182,26 @@ Phases, one line each, stopping at the first failure:
    NCCL ``ProcessGroup`` on a file store, its (1, 1) rows the
    ``LocalGroup``'s bit for bit, the group destroyed after; (g)
    ``sharded_distance_topk`` over phase 10's D = 4 library on a (4, 1)
-   mesh, equal to ``nearest_neighbors_all``.
+   mesh, equal to ``nearest_neighbors_all``;
+16. the C compat library and the differential fuzz (the rest of M11):
+   ``libbliss.so`` and ``abi_check`` built with g++ and gcc from the
+   checkout; (a) the library loaded into this process with ``ctypes``,
+   ``io.decoder.decode`` patched to hand back 8 of the main batch's songs
+   by file name: under ``gpu`` each ``bl_analyze`` launches the prepass and
+   K1 once and gives phase 4's rows (beats identical, the rest within
+   5e-4); under ``parity``, on 4 of them, the three sorts within 1e-5 of
+   ``Song``'s ``for_parity()`` analyses and of ``bl_analyze``'s vectors;
+   ``bl_distance`` and ``bl_cosine_similarity`` against ``sim.distance``;
+   seconds a song under each mode; (b) ``abi_check`` in a fresh process
+   with no environment but the mode, on 2 caller-filled raw songs (its
+   cold start, its sorts (a)'s), then on 4 threads x 2 rounds, every
+   result the single-thread one; (c) a FLAC file through
+   ``bl_audio_decode``: without libav ``BL_UNEXPECTED`` with the decoder's
+   message; (d) ``bliss_tpu_torch.fuzz``: 16 ``device_exact``, 16
+   ``hybrid``, 4 ``streaming`` and 8 ``extended`` cases, none divergent,
+   with cases a second and the largest deviation per column. Where
+   ``Python.h`` or a compiler is missing, (a)-(c) print one line naming
+   it and (d) runs.
 
 The script's total time follows. The last two lines of standard output
 are a JSON line of the kernels and their timings and the card's name and
@@ -3160,6 +3179,284 @@ def mesh_phase(arrays, durations, out, outh, ext_rows, longs, long_durs, device,
     return launches, shard, matrix
 
 
+# --- phase 16: the C compat library and the differential fuzz (M11) ----------
+
+COMPAT_SONGS = 8  # of the main batch's, through bl_analyze under gpu
+COMPAT_PARITY = 4  # of those, under parity too
+COMPAT_RAW = 2  # of those, written raw for the fresh process
+COMPAT_THREADS, COMPAT_ROUNDS = 4, 2
+FUZZ = (("device_exact", 16), ("hybrid", 16), ("streaming", 4), ("streaming_strict", 2),
+        ("extended", 8))
+
+
+def compat_mode(mode: str, device):
+    return mock.patch.dict(os.environ, {"BLISS_TPU_TORCH_COMPAT_MODE": mode,
+                                        "BLISS_TPU_TORCH_DEVICE": str(device)})
+
+
+def caller_song(compat, pcm: np.ndarray, duration: int):
+    """A caller-filled ``bl_song`` over ``pcm`` (which must outlive it)."""
+    song = compat.BlSong()
+    song.sample_array = pcm.ctypes.data
+    song.nSamples, song.channels, song.sample_rate = pcm.shape[0], 2, SR
+    song.nb_bytes_per_sample, song.duration = 2, duration
+    return song
+
+
+def c_sorts(lib, compat, song) -> list[float]:
+    """(tempo, amplitude, frequency, attack) from the three sorts."""
+    import ctypes
+
+    env = compat.EnvelopeResult()
+    amp = lib.bl_amplitude_sort(ctypes.byref(song))
+    freq = lib.bl_frequency_sort(ctypes.byref(song))
+    lib.bl_envelope_sort(ctypes.byref(song), ctypes.byref(env))
+    return [env.tempo, amp, freq, env.attack]
+
+
+def compat_inproc_part(arrays, durations, out, device, label) -> dict:
+    """Phase 16 (a): ``libbliss.so`` loaded into this process with
+    ``ctypes``, ``io.decoder.decode`` patched to hand back the main batch's
+    first COMPAT_SONGS songs by file name (the card's machine has no libav):
+    under ``gpu``, ``bl_analyze`` of each launches the prepass and K1 once
+    and gives phase 4's ``analyze_pcm`` rows (beats identical, the rest
+    within 5e-4); under ``parity``, on COMPAT_PARITY of them, the three
+    sorts lie within 1e-5 of ``Song.amplitude_analysis`` /
+    ``frequency_analysis`` / ``envelope_analysis`` under ``for_parity()``
+    and of ``bl_analyze``'s vector (beats identical); ``bl_distance`` and
+    ``bl_cosine_similarity`` of the gpu vectors within 1e-6 (relative past
+    1) of ``sim.distance``'s in float64. Returns launches by mode, seconds
+    a song by mode, and the gpu-mode sorts of the first COMPAT_RAW songs."""
+    import ctypes
+
+    from bliss_tpu_torch import AnalysisConfig, Song, compat
+    from bliss_tpu_torch.io import DecodedAudio, decoder
+    from bliss_tpu_torch.sim.distance import cosine_similarity, distance
+
+    lib = compat.load()
+    songs = [np.ascontiguousarray(a) for a in arrays[:COMPAT_SONGS]]
+    durs = list(durations[:COMPAT_SONGS])
+    names = [f"compat{i:02d}.flac" for i in range(len(songs))]
+    pcm = {n: DecodedAudio(a, 2, SR, 0, 2, 0, d, n, "", "", "", "", "")
+           for n, a, d in zip(names, songs, durs)}
+    launches, secs = {}, {}
+
+    def analyze(names_, mode):
+        rows, times = [], []
+        with compat_mode(mode, device), mock.patch.object(decoder, "decode", lambda p: pcm[p]):
+            reset_counts()
+            for n in names_:
+                song = compat.BlSong()
+                before = launch_counts()
+                t0 = time.perf_counter()
+                rc = lib.bl_analyze(n.encode(), ctypes.byref(song))
+                times.append(time.perf_counter() - t0)
+                got = {k: v - before[k] for k, v in launch_counts().items()}
+                if rc not in (0, 1, 2) or (mode == "gpu" and got != {
+                        "prepass": 1, "fused_all": 1, "fused_stats": 0, "stft_power": 0}):
+                    raise AssertionError(f"phase 16 (a) {mode}: bl_analyze({n}) returned {rc}, "
+                                         f"launched {got}")
+                v = song.force_vector
+                rows.append([v.tempo, v.amplitude, v.frequency, v.attack])
+                lib.bl_free_song(ctypes.byref(song))
+            launches[mode] = launch_counts()
+        secs[mode] = times
+        return np.array(rows, np.float32)
+
+    gpu = analyze(names, "gpu")
+    err = within("phase 16 (a) gpu", gpu, out[:len(songs)], "phase 4's analyze_pcm rows")
+    parity = analyze(names[:COMPAT_PARITY], "parity")
+    parity_cfg = AnalysisConfig.for_parity()
+    sorts, ref = [], []
+    with compat_mode("parity", device):
+        for a, d in zip(songs[:COMPAT_PARITY], durs):
+            sorts.append(c_sorts(lib, compat, caller_song(compat, a, d)))
+            s = Song(device=device)
+            s.sample_array, s.duration = a, d
+            t, k = s.envelope_analysis(parity_cfg)
+            ref.append([t, s.amplitude_analysis(parity_cfg), s.frequency_analysis(parity_cfg), k])
+    sorts, ref = np.array(sorts, np.float32), np.array(ref, np.float32)
+    for what, other in (("Song's analyses under for_parity()", ref), ("bl_analyze's vectors", parity)):
+        if not (np.array_equal(sorts[:, 0], other[:, 0]) and np.abs(sorts - other).max() <= 1e-5):
+            raise AssertionError(f"phase 16 (a) parity: the sorts differ from {what}: "
+                                 f"{np.abs(sorts - other).max(axis=0)}")
+    with compat_mode("gpu", device):
+        raw_sorts = [c_sorts(lib, compat, caller_song(compat, a, d))
+                     for a, d in zip(songs[:COMPAT_RAW], durs)]
+    worst = 0.0
+    for i in range(len(songs)):
+        for j in range(i + 1, len(songs)):
+            a, b = (compat.ForceVector(*map(float, gpu[k])) for k in (i, j))
+            ta, tb = (torch.tensor(gpu[k], dtype=torch.float64, device=device) for k in (i, j))
+            for c_val, t_val in ((lib.bl_distance(a, b), distance(ta, tb)),
+                                 (lib.bl_cosine_similarity(a, b), cosine_similarity(ta, tb))):
+                t_val = float(t_val)
+                worst = max(worst, abs(c_val - t_val) / max(1.0, abs(t_val)))
+    if not worst <= 1e-6:
+        raise AssertionError(f"phase 16 (a): bl_distance / bl_cosine_similarity differ from "
+                             f"sim.distance's by {worst:.2e}")
+    log(f"compat (phase 16) (a) in process: bl_analyze under gpu on {len(songs)} songs: launches "
+        f"{launches['gpu']}, beats identical to phase 4's rows, max |diff| {err.max():.2e}, "
+        f"{statistics.median(secs['gpu']):.3f} s a song (median; least {min(secs['gpu']):.3f}, most "
+        f"{max(secs['gpu']):.3f}); under parity on {COMPAT_PARITY}: "
+        f"{statistics.median(secs['parity']):.3f} s a song (least {min(secs['parity']):.3f}, most "
+        f"{max(secs['parity']):.3f}), launches {launches['parity']}, the three sorts within "
+        f"{np.abs(sorts - ref).max():.2e} of Song's for_parity() analyses and "
+        f"{np.abs(sorts - parity).max():.2e} of bl_analyze's; bl_distance and "
+        f"bl_cosine_similarity within {worst:.2e} of sim.distance's {label}")
+    return {"launches": launches, "secs": secs, "raw_sorts": np.array(raw_sorts, np.float32)}
+
+
+def compat_process_part(arrays, durations, raw_sorts, device, tmp, label) -> None:
+    """Phase 16 (b) and (c): ``abi_check.c`` compiled with
+    ``-DBLISS_COMPAT_NO_LIBAV`` against the library, run in a fresh process
+    under ``gpu`` with no environment but the mode, on COMPAT_RAW of the
+    main batch's songs written as raw int16 (caller-filled): its cold start
+    timed, its sorts (a)'s in-process ones (beats identical, the rest within
+    1e-5); then with ``--threads 4 --rounds 2`` under a 300 s timeout, every
+    thread's results the single-thread ones, and (c) a FLAC file through
+    ``bl_audio_decode``: without libav ``BL_UNEXPECTED`` with the decoder's
+    message and ``bl_distance_file`` -2; with libav the file analyzed."""
+    from bliss_tpu_torch import compat
+    from bliss_tpu_torch.io.flac_writer import write_flac
+
+    exe = compat.abi_check_path()
+    raws = []
+    for i, (a, d) in enumerate(zip(arrays[:COMPAT_RAW], durations)):
+        path = os.path.join(tmp, f"raw{i}.s16")
+        a.tofile(path)
+        raws += ["--raw", path, str(d)]
+    env = {"BLISS_TPU_TORCH_COMPAT_MODE": "gpu"}
+    if torch.device(device).type != "cuda":  # a rehearsal: cuda is the default
+        env["BLISS_TPU_TORCH_DEVICE"] = str(device)
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe, *raws], env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = compat.abi_check_lines(proc.stdout)
+    cold = float(lines["cold_start"][0][0]) if "cold_start" in lines else None
+    if proc.returncode != 0 or len(lines.get("sorts", [])) != COMPAT_RAW:
+        raise AssertionError(f"phase 16 (b): abi_check exited {proc.returncode}: "
+                             f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    got = np.array([[float(r[2]), float(r[0]), float(r[1]), float(r[3])] for r in lines["sorts"]],
+                   np.float32)
+    if not (np.array_equal(got[:, 0], raw_sorts[:, 0]) and np.abs(got - raw_sorts).max() <= 1e-5):
+        raise AssertionError(f"phase 16 (b): the fresh process's sorts {got} differ from the "
+                             f"in-process ones {raw_sorts}")
+    log(f"compat (phase 16) (b) abi_check in a fresh process (env: the mode only), gpu, "
+        f"{COMPAT_RAW} caller-filled songs: cold start to the first sort's end "
+        f"{cold:.3f} s, the process {wall:.2f} s; the sorts within "
+        f"{np.abs(got - raw_sorts).max():.2e} of (a)'s in-process ones, beats identical {label}")
+
+    flac = os.path.join(tmp, "song0.flac")
+    write_flac(flac, arrays[0].reshape(-1, 2), SR)
+    real = libav_present()
+    args = raws + ["--bad", flac] + ([flac] if real else []) + [
+        "--threads", str(COMPAT_THREADS), "--rounds", str(COMPAT_ROUNDS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe, *args], env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = compat.abi_check_lines(proc.stdout)
+    items = COMPAT_RAW + real
+    if proc.returncode != 0 or lines.get("threads") != [[str(COMPAT_THREADS), str(COMPAT_ROUNDS),
+                                                         str(items), "0"]]:
+        raise AssertionError(f"phase 16 (b) threads: abi_check exited {proc.returncode}: "
+                             f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    log(f"compat (phase 16) (b) abi_check --threads {COMPAT_THREADS} --rounds {COMPAT_ROUNDS}: "
+        f"{COMPAT_THREADS * COMPAT_ROUNDS * items} calls of {items} songs at once, every result "
+        f"the single-thread one bit for bit, no deadlock, {wall:.2f} s {label}")
+    (bad,) = lines["bad"]
+    if real:
+        from bliss_tpu_torch import api
+        from bliss_tpu_torch.io import decode
+
+        d = decode(flac)  # the writer fills the last block: the file's own PCM
+        row = np.float32(lines["analyze"][0][2:6])
+        err = within("phase 16 (c)", row[None, :],
+                     api.analyze_pcm([d.samples], [d.duration], device=device),
+                     "analyze_pcm of the decoded file")
+        what = f"bl_analyze of the FLAC file through the port's decoder: max |diff| {err.max():.2e}"
+    else:
+        said = [ln for ln in proc.stderr.splitlines() if ln.startswith(f"bliss_tpu_torch compat: {flac}: ")]
+        if bad[:4] != ["-2", "-2", "-2", "-2"] or not said:
+            raise AssertionError(f"phase 16 (c): without libav, want BL_UNEXPECTED and the "
+                                 f"decoder's message: {bad} {proc.stderr[-2000:]}")
+        what = ("no libav development files here: bl_audio_decode and bl_analyze return "
+                "BL_UNEXPECTED, bl_distance_file and bl_cosine_similarity_file -2, and stderr has "
+                f"the decoder's message: {said[0][:160]!r}")
+    log(f"compat (phase 16) (c) decode of a FLAC file: {what} {label}")
+
+
+def fuzz_part(device, label) -> dict:
+    """Phase 16 (d): ``bliss_tpu_torch.fuzz`` on the card, each mode of
+    FUZZ with no divergent case but the pinned float32 flips of
+    ``fuzz.KNOWN_F32_FLIPS``; returns launches by mode."""
+    from bliss_tpu_torch import fuzz
+
+    launches = {}
+    for mode, n in FUZZ:
+        reset_counts()
+        if mode in ("device_exact", "hybrid"):
+            res = fuzz.run_batched_device_fuzz(n, mode, device=device, verbose=False)
+        elif mode == "extended":
+            res = fuzz.run_extended_fuzz(n, device=device, verbose=False)
+        else:
+            res = fuzz.run_fuzz(n, mode, device=device, verbose=False)
+        launches[mode] = launch_counts()
+        # streaming: a divergent case whose only fault is a flip that
+        # bliss_tpu's own float32 streaming makes on the same song, and that
+        # its for_parity() stream settles (fuzz.KNOWN_F32_FLIPS, pinned by
+        # tests/test_torch_fuzz.py), is reported; any other divergence fails
+        known = res.get("known_flips", [])
+        if res["cases"] != n or res["divergent"] != len(known):
+            raise AssertionError(f"phase 16 (d) fuzz {mode}: {res}")
+        want = {"device_exact": ("prepass", "fused_all"), "hybrid": ("prepass", "fused_stats", "stft_power"),
+                "extended": ("prepass", "fused_all")}.get(mode, ())
+        if any(not launches[mode][k] for k in want):
+            raise AssertionError(f"phase 16 (d) fuzz {mode} launched {launches[mode]}")
+        dev = res.get("max_dev") or res["max_dev_by_group"]
+        dev_text = (", ".join(f"{k} {v:.2e}" for k, v in dev.items()) if isinstance(dev, dict)
+                    else "tempo {:.2e} amplitude {:.2e} frequency {:.2e} attack {:.2e}".format(*dev))
+        log(f"compat (phase 16) (d) fuzz {mode}: {n} cases, divergent {res['divergent']}"
+            + (f" (marginal {res['marginal']}; bliss_tpu's own float32 flips of more than one "
+               f"beat, parity exact (fuzz.KNOWN_F32_FLIPS): cases {known})"
+               if "marginal" in res else "")
+            + f", {res['seconds']:.1f} s = {n / res['seconds']:.2f} cases/s ("
+            + ("the CPU's float64 stage" if mode == "extended" else "the oracle's processes")
+            + f" and the songs' making included), max |diff| {dev_text}; launches "
+            f"{launches[mode]} {label}")
+    return launches
+
+
+def compat_phase(arrays, durations, out, device, label) -> dict:
+    """Phase 16: the C compat library (a)-(c) and the fuzz (d). Where the
+    library cannot be built for want of ``Python.h`` or a compiler, (a)-(c)
+    print one line naming it and (d) still runs. Returns launches by part
+    and mode."""
+    import tempfile
+
+    from bliss_tpu_torch import compat
+
+    t0 = time.perf_counter()
+    launches = {}
+    try:
+        t_build = time.perf_counter()
+        compat.abi_check_path()
+        log(f"compat (phase 16) libbliss.so and abi_check built in "
+            f"{time.perf_counter() - t_build:.1f} s (g++ and gcc)")
+    except compat.MissingBuildTool as e:
+        log(f"compat (phase 16) (a)-(c) left out: {e}")
+    else:
+        part = compat_inproc_part(arrays, durations, out, device, label)
+        launches["compat"] = part["launches"]
+        with tempfile.TemporaryDirectory() as tmp:
+            compat_process_part(arrays, durations, part["raw_sorts"], device, tmp, label)
+    t1 = time.perf_counter()
+    launches["fuzz"] = fuzz_part(device, label)
+    log(f"compat (phase 16) took {time.perf_counter() - t0:.1f} s: (a)-(c) {t1 - t0:.1f}, "
+        f"(d) {time.perf_counter() - t1:.1f}")
+    return launches
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3453,6 +3750,8 @@ def main() -> int:
     mesh_launches, mesh_shard, mesh_matrix = mesh_phase(
         arrays, durations, out, outh, ext_rows["main"], *serve_long[:2], "cuda", label)
     del long_pcm, serve_long
+    # 16. the C compat library and the differential fuzz (M11)
+    compat_launches = compat_phase(arrays, durations, out, "cuda", label)
     for row, counts in mesh_matrix.items():
         matrix_rows[row] = counts
         for k, v in counts.items():
@@ -3520,6 +3819,8 @@ def main() -> int:
             e["matrix_launches"] = matrix_launches[e["name"]]
             e["matrix_rows"] = [row for row, c in matrix_rows.items() if c[e["name"]]]
             e["mesh_launches"] = {m: c[e["name"]] for m, c in mesh_launches.items()}
+            e["compat_launches"] = {m: c[e["name"]] for m, c in compat_launches.get("compat", {}).items()}
+            e["fuzz_launches"] = {m: c[e["name"]] for m, c in compat_launches["fuzz"].items()}
             if e["name"] in mesh_shard:
                 errs, ms, plain_ms = mesh_shard[e["name"]]
                 e["mesh_shard"] = {"max_abs_err": max(a for a, _ in errs.values()),

@@ -499,3 +499,48 @@ def test_nccl_process_group_of_one_matches_the_local_mesh(cuda, tmp_path):
     want = analyze_sharded_async(_mesh_batch(cuda), analysis_mesh(1, 1, devices=[cuda]), cfg,
                                  extended=True)()
     assert np.array_equal(got, want)
+
+
+def test_c_library_on_gpu_analyzes_through_the_kernels(cuda, tmp_path, monkeypatch):
+    """``libbliss.so`` loaded into this process, ``gpu`` mode on the card:
+    each ``bl_analyze`` launches the prepass and K1 once and gives
+    ``analyze_pcm``'s row (beats identical, the rest within 5e-4). The
+    card's machine has no libav, so decode hands back the PCM each file
+    name stands for."""
+    import ctypes
+
+    from bliss_tpu_torch import api, compat
+    from bliss_tpu_torch.io import DecodedAudio, decoder
+
+    songs, durs = _songs()
+    pcm = {f"song{i}.flac": DecodedAudio(s, 2, 22050, 0, 2, 0, d, f"song{i}.flac", "", "", "", "", "")
+           for i, (s, d) in enumerate(zip(songs, durs))}
+    monkeypatch.setattr(decoder, "decode", lambda path: pcm[path])
+    monkeypatch.setenv("BLISS_TPU_TORCH_COMPAT_MODE", "gpu")
+    monkeypatch.delenv("BLISS_TPU_TORCH_DEVICE", raising=False)  # cuda
+    lib = compat.load()
+    rows = []
+    for name in pcm:
+        song = compat.BlSong()
+        before = (fused_stats.PREPASS_LAUNCHES, fused_all.LAUNCHES)
+        assert lib.bl_analyze(name.encode(), ctypes.byref(song)) != -2
+        assert (fused_stats.PREPASS_LAUNCHES, fused_all.LAUNCHES) == (before[0] + 1, before[1] + 1)
+        v = song.force_vector
+        rows.append([v.tempo, v.amplitude, v.frequency, v.attack])
+        lib.bl_free_song(ctypes.byref(song))
+    got = np.array(rows, np.float32)
+    ref = np.concatenate([api.analyze_pcm([s], [d], device=cuda) for s, d in zip(songs, durs)])
+    assert np.array_equal(got[:, 0], ref[:, 0])
+    np.testing.assert_allclose(got[:, 1:], ref[:, 1:], rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("mode", ["device_exact", "hybrid"])
+def test_fuzz_on_gpu_finds_no_divergence(cuda, mode):
+    from bliss_tpu_torch import fuzz
+
+    before = (fused_stats.PREPASS_LAUNCHES, fused_all.LAUNCHES, fused_stats.LAUNCHES)
+    res = fuzz.run_batched_device_fuzz(16, mode, device=cuda, verbose=False)
+    assert (res["cases"], res["divergent"]) == (16, 0), res
+    launched = [a - b for a, b in zip((fused_stats.PREPASS_LAUNCHES, fused_all.LAUNCHES,
+                                       fused_stats.LAUNCHES), before)]
+    assert launched[0] and (launched[1] if mode == "device_exact" else launched[2]), launched

@@ -23,6 +23,8 @@ import os
 import subprocess
 import sys
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
@@ -144,6 +146,11 @@ meshed = analyze_sharded(PCMBatch.from_arrays([long_song, song], [3, 1], device=
 flat = bliss_tpu_torch.analyze_pcm([long_song, song], [3, 1], cfg=f64, device="cpu")
 assert np.abs(meshed - flat).max() <= 2e-6, (meshed, flat)
 assert dryrun.dryrun_multichip and init_distributed and pod_mesh
+from bliss_tpu_torch import compat, fuzz
+assert compat.library_path and compat.abi_check_path
+fuzz.SECONDS = (3, 4)
+res = fuzz.run_batched_device_fuzz(1, "device_exact", device="cpu", verbose=False, workers=1)
+assert (res["cases"], res["divergent"]) == (1, 0), res
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())
@@ -158,3 +165,35 @@ def test_port_imports_and_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK"), proc.stdout
+
+
+SITECUSTOMIZE = """
+import sys
+for name in ("jax", "jaxlib", "ml_dtypes", "bliss_tpu"):
+    sys.modules[name] = None  # any import of them raises ImportError
+open(__file__ + ".ran", "w").close()
+"""
+
+
+def test_the_c_librarys_interpreter_runs_without_jax(tmp_path):
+    """``abi_check`` on a caller-filled song with a ``sitecustomize`` on
+    ``PYTHONPATH`` that blocks ``jax``, ``ml_dtypes`` and ``bliss_tpu`` in the
+    interpreter ``libbliss.so`` embeds: the three sorts come back (an import
+    of a blocked module would make them BL_UNEXPECTED)."""
+    from bliss_tpu_torch import compat
+
+    exe = compat.abi_check_path()
+    (tmp_path / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    t = np.arange(88_200)
+    (9000 * np.sin(2 * np.pi * t / 45.0)).astype(np.int16).tofile(tmp_path / "song.s16")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLISS_TPU_TORCH_")}
+    env.update(PYTHONPATH=str(tmp_path), OMP_NUM_THREADS="1", BLISS_TPU_TORCH_DEVICE="cpu",
+               BLISS_TPU_TORCH_COMPAT_MODE="gpu")
+    proc = subprocess.run([exe, "--raw", str(tmp_path / "song.s16"), "2"], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert (tmp_path / "sitecustomize.py.ran").exists()
+    (sorts,) = compat.abi_check_lines(proc.stdout)["sorts"]
+    sorts = sorts[:4]
+    assert all(np.isfinite(float(x)) and float(x) != -2.0 for x in sorts), (sorts, proc.stderr)
+    assert "Error" not in proc.stderr, proc.stderr
