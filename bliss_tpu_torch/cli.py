@@ -50,6 +50,7 @@ import torch
 
 from bliss_tpu_torch.config import check_supported
 from bliss_tpu_torch.features.types import resolve_device
+from bliss_tpu_torch.tools import add_device_arg, device_arg
 
 
 def is_audio_filename(name: str) -> bool:
@@ -76,10 +77,7 @@ def _collect_audio_files(paths: list[str]) -> list[str]:
 def _device(args) -> torch.device:
     """``--device`` as a torch device; a CUDA device without a GPU stops
     the command with ``resolve_device``'s error."""
-    try:
-        return resolve_device(args.device)
-    except RuntimeError as e:
-        raise SystemExit(f"bliss-tpu-torch: {e}") from None
+    return device_arg(args.device, "bliss-tpu-torch")
 
 
 def _band_config(args):
@@ -772,13 +770,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="bliss-tpu-torch",
         description="music analysis on an NVIDIA GPU (PyTorch + CUDA)",
     )
-    p.add_argument(
-        "--device",
-        default=os.environ.get("BLISS_TPU_TORCH_DEVICE", "cuda"),
-        help="torch device the analysis and similarity run on ('cuda',"
-        " 'cuda:1', 'cpu'); without a GPU, 'cuda' fails rather than running"
-        " on the CPU (env fallback: BLISS_TPU_TORCH_DEVICE)",
-    )
+    add_device_arg(p)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     a = sub.add_parser("analyze", help="analyze songs and print reports")

@@ -201,7 +201,27 @@ Phases, one line each, stopping at the first failure:
    ``hybrid``, 4 ``streaming`` and 8 ``extended`` cases, none divergent,
    with cases a second and the largest deviation per column. Where
    ``Python.h`` or a compiler is missing, (a)-(c) print one line naming
-   it and (d) runs.
+   it and (d) runs;
+17. the tools and examples (M12: ``bliss_tpu_torch.tools``,
+   ``bliss_tpu_torch.examples``), with TF32 asserted off: (a)
+   ``tools.quality_benchmark.run`` at 6 x 4 x 5 s and 8 x 6 x 11 s under the
+   script's config (the XLA-path stage: the prepass once, no K1, K2 or K3)
+   and ``for_gpu()`` (the prepass and K1 once a call), each [N, 49] matrix
+   held to the same call on the CPU (beats identical, the core within 5e-4,
+   the rest within ``EXTENDED_GATES``, recall and separation within 1e-3),
+   the extended columns winning (recall >= core's and >= 0.8, separation
+   above core's), and the 6 x 4 x 5 s numbers within 1e-3 of
+   ``bliss_tpu``'s (``QUALITY_BLISS_TPU``); (b) ``tools.bench_similarity``
+   at N = 100 000, D = 4 and 49, ``correct_row0`` true; (c)
+   ``tools.demo_scale`` at its default sizes, its scan of 384 generated
+   songs of 11 s through the prepass and K1 once a batch, rows as
+   ``analyze_pcm``'s; (d) each of the six examples on a 6-song generated
+   library (``library_scan`` and ``make_playlist`` writing the CLI's CSV
+   and m3u); (e) ``tests/test_edge_cases.py``'s degenerate songs and four
+   more through the prepass and K1 against their plain versions. Where
+   libav's development files are missing, (c) and (d) patch
+   ``pipeline.iter_decode`` and ``api._decode`` (logged) to read the PCM
+   ``gen_library`` wrote.
 
 The script's total time follows. The last two lines of standard output
 are a JSON line of the kernels and their timings and the card's name and
@@ -3144,6 +3164,402 @@ def mesh_topk_part(vectors, device, label) -> None:
         f"and indices equal to nearest_neighbors_all's; {t_mesh}; nearest_neighbors_all {t_flat} {label}")
 
 
+# the scan of tools/demo_scale.py (scripts/demo_scale.py:62-75): songs,
+# seconds, batch
+SCALE_SCAN = (384, 11, 64)
+EXAMPLE_SONGS = 6  # the examples' generated library, of 11 s songs
+
+
+def edge_songs() -> dict:
+    """name -> (int16 PCM, duration): ``tests/test_edge_cases.py``'s five
+    degenerate songs (a 700-sample clip, 50 000 silent samples, full-scale
+    samples, clips of 30 000 and 20 000 samples) and four more (a silent
+    100 000-sample song, a constant 1234, one click, a song of duration 0);
+    ``tests/test_torch_edge_cases.py`` holds each to ``bliss_tpu``."""
+    click = np.zeros(100_000, np.int16)
+    click[50_000] = 20000
+    return {
+        "tiny_clip": (np.random.RandomState(0).randint(-1000, 1000, size=700).astype(np.int16), 1),
+        "silent": (np.zeros(50_000, np.int16), 2),
+        "full_scale": (np.random.RandomState(1).choice(
+            np.array([-32768, -32767, 32767], np.int16), size=80_000).astype(np.int16), 3),
+        "short_clip": (np.random.RandomState(2).randint(-9000, 9000, size=30_000).astype(np.int16), 2),
+        "hybrid_short_clip": (np.random.RandomState(3).randint(-9000, 9000, size=20_000)
+                              .astype(np.int16), 1),
+        "silent_100k": (np.zeros(100_000, np.int16), 2),
+        "constant_1234": (np.full(100_000, 1234, np.int16), 4),
+        "one_click": (click, 2),
+        "duration_0": (synth_song(np.random.default_rng(SEED + 5), 100_000), 0),
+    }
+
+
+def quality_part(device, label) -> dict:
+    """Phase 17 (a): ``tools.quality_benchmark.run`` at each of QUALITY_SIZES
+    under the script's config (the XLA-path stage: the prepass, no K1, K2 or
+    K3) and ``for_gpu()`` (the prepass and K1 once a call), each held to the
+    same call on the CPU (beat counts identical, the core columns within
+    5e-4, the rest within EXTENDED_GATES, recall and separation within
+    1e-3) and to the script's thresholds; at 6 x 4 x 5 s also to
+    ``bliss_tpu``'s numbers (QUALITY_BLISS_TPU). Returns launches by run."""
+    from bliss_tpu_torch import AnalysisConfig
+    from bliss_tpu_torch.features.analyze import analyze_batch_ext
+    from bliss_tpu_torch.features.types import PCMBatch
+    from bliss_tpu_torch.tools import quality_benchmark as qb
+
+    metrics = tuple(QUALITY_BLISS_TPU)
+    launches = {}
+    for fam, var, secs in QUALITY_SIZES:
+        size = f"{fam}x{var}x{secs:g}s"
+        t0 = time.perf_counter()
+        songs, _ = qb.library(fam, var, secs)
+        synth_s = time.perf_counter() - t0
+        batch = PCMBatch.from_arrays(songs, [int(secs)] * len(songs), device=device)
+        for name, cfg in (("script", AnalysisConfig(tempo_finish="device_exact")),
+                          ("for_gpu", AnalysisConfig.for_gpu())):
+            what = f"phase 17 (a) {name} {size}"
+            reset_counts()
+            t0 = time.perf_counter()
+            res = qb.run(fam, var, secs, cfg=cfg, device=device)
+            run_s = time.perf_counter() - t0
+            launches[f"quality_{name}_{size}"] = got = launch_counts()
+            want = {"prepass": 1, "fused_all": int(name == "for_gpu"), "fused_stats": 0,
+                    "stft_power": 0}
+            if got != want:
+                raise AssertionError(f"{what} launched {got}; want {want}")
+            t0 = time.perf_counter()
+            cpu = qb.run(fam, var, secs, cfg=cfg, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            rows, ref = res["features"], cpu["features"]
+            durs = [int(secs)] * rows.shape[0]
+            core = within(what, rows[:, :4], ref[:, :4], "the same run on the CPU")
+            errs = ext_gates(what, rows[:, 4:], ref[:, 4:], durs)
+            diff = {k: abs(res[k] - cpu[k]) for k in metrics}
+            if not all(d <= 1e-3 for d in diff.values()):
+                raise AssertionError(f"{what}: metrics differ from the CPU's: {diff}")
+            if not (res["recall_at_k_extended"] >= res["recall_at_k_core4"]
+                    and res["recall_at_k_extended"] >= 0.8
+                    and res["separation_extended"] > res["separation_core4"]
+                    and res["extended_wins"]):
+                raise AssertionError(f"{what}: the extended columns do not win: "
+                                     f"{ {k: res[k] for k in metrics} }")
+            anchor = ""
+            stage = times_text(host_times(lambda: analyze_batch_ext(batch, cfg), device))
+            if (fam, var, secs) == QUALITY_SIZES[0]:
+                jd = {k: abs(res[k] - QUALITY_BLISS_TPU[k]) for k in metrics}
+                if not all(d <= 1e-3 for d in jd.values()):
+                    raise AssertionError(f"{what}: metrics differ from bliss_tpu's: {jd}")
+                anchor = f"; bliss_tpu's numbers within {max(jd.values()):.2e}"
+            log(f"tools (phase 17) (a) quality_benchmark {name} {size} ({res['songs']} songs): "
+                f"{run_s:.3f} s on the card (CPU {cpu_s:.3f} s; the songs' synthesis alone "
+                f"{synth_s:.3f} s; analyze_batch_ext of the card-resident batch, warm, {stage}); "
+                f"recall@{res['k']} core4 "
+                f"{res['recall_at_k_core4']:.4f} extended {res['recall_at_k_extended']:.4f}, "
+                f"separation core4 {res['separation_core4']:.4f} extended "
+                f"{res['separation_extended']:.4f}; launches {got}; rows vs the CPU: beats "
+                f"identical, core max |diff| {core.max():.2e}, {gates_text(errs)}; metrics "
+                f"within {max(diff.values()):.2e} of the CPU's{anchor} {label}")
+    return launches
+
+
+def similarity_tool_part(device, label) -> None:
+    """Phase 17 (b): ``tools.bench_similarity.main`` at its default N = 100 000
+    at D = 4 and D = 49: ``correct_row0`` true, the card's line before it."""
+    import contextlib
+    import io
+
+    from bliss_tpu_torch.tools import bench_similarity
+
+    card = card_line() if torch.device(device).type == "cuda" else None
+    for dim in (4, 49):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_similarity.main(["--device", str(device), "--dim", str(dim),
+                                        "--n", str(SIM_N)])
+        lines = buf.getvalue().strip().splitlines()
+        rec = json.loads(lines[-1])
+        if rc != 0 or not rec["correct_row0"] or rec["n"] != SIM_N or (
+                card is not None and lines[-2] != card):
+            raise AssertionError(f"phase 17 (b) bench_similarity --dim {dim}: rc {rc}, {lines}")
+        log(f"tools (phase 17) (b) bench_similarity --dim {dim}: {json.dumps(rec)} {label}")
+
+
+def library_decode(pcm_by_index):
+    """A stand-in for ``pipeline.iter_decode`` and ``api._decode`` over a
+    ``gen_library`` library: file songNNNNN.flac decodes to
+    ``pcm_by_index[NNNNN]``, as the native decoder reads it back
+    (``tests/test_torch_tools.py``)."""
+    from bliss_tpu_torch.io import DecodedAudio
+
+    def decoded(path):
+        samples = pcm_by_index[int(os.path.basename(path)[4:9])]
+        return DecodedAudio(samples, 2, SR, 706146, 2, 0, samples.shape[0] // (2 * SR), str(path),
+                            "<no artist>", "<no title>", "<no album>", "", "<no genre>")
+
+    def iter_decode(paths, **kw):
+        for p in paths:
+            yield p, decoded(p)
+
+    return decoded, iter_decode
+
+
+def decode_patches(pcm_by_index, what) -> list:
+    """Where libav's development files are missing, patches of
+    ``pipeline.iter_decode`` and ``api._decode`` (logged) that read a
+    ``gen_library`` library's PCM; the device path is not patched."""
+    from bliss_tpu_torch import api, pipeline
+
+    if libav_present():
+        return []
+    log(f"tools (phase 17) {what}: no libav development files here, so pipeline.iter_decode "
+        f"and api._decode are patched to yield the PCM gen_library wrote each file from; the "
+        f"device path is not patched")
+    decoded, iter_decode = library_decode(pcm_by_index)
+    return [mock.patch.object(pipeline, "iter_decode", iter_decode),
+            mock.patch.object(api, "_decode", decoded)]
+
+
+def demo_scale_part(device, label) -> dict:
+    """Phase 17 (c): ``tools.demo_scale.main`` at its default sizes: the
+    10k x 10k distance matrix, the all-song top-100 over the card's mesh, the
+    100k k-means, and the scan of SCALE_SCAN's library through the prepass
+    and K1 once a batch, its rows ``analyze_pcm``'s of the same PCM.
+    Returns the scan's launches."""
+    import contextlib
+    import io
+
+    from bliss_tpu_torch import api, pipeline
+    from bliss_tpu_torch.tools import demo_scale
+    from bliss_tpu_torch.tools.gen_library import library_pcm
+
+    n, secs, batch = SCALE_SCAN
+    if demo_scale.scan.__defaults__[:3] != SCALE_SCAN:
+        raise AssertionError(f"demo_scale.scan's sizes {demo_scale.scan.__defaults__} are not "
+                             f"SCALE_SCAN {SCALE_SCAN}")
+    pcm = library_pcm(n, secs)
+    results, scans = [], []
+    real_library = pipeline.analyze_library
+    patches = decode_patches(pcm, "(c)") + [
+        mock.patch.object(pipeline, "analyze_library",
+                          lambda *a, **kw: results.append(real_library(*a, **kw)) or results[-1]),
+        mock.patch.object(demo_scale, "similarity",
+                          lambda *a, _f=demo_scale.similarity, **kw: scans.append(_f(*a, **kw))
+                          or scans[-1]),
+    ]
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = demo_scale.main(["--device", str(device)])
+        total_s = time.perf_counter() - t0
+        counts = launch_counts()
+    out = buf.getvalue().strip().splitlines()
+    (scan,) = results
+    if rc != 0 or not scan.ok.all() or len(scan.files) != n:
+        raise AssertionError(f"phase 17 (c) demo_scale: rc {rc}, {int(scan.ok.sum())}/{n} ok, "
+                             f"{scan.errors}")
+    batches = scan.stats["device_dispatch"]["count"]
+    want = {"prepass": batches, "fused_all": batches, "fused_stats": 0, "stft_power": 0}
+    if counts != want or batches != -(-n // batch):
+        raise AssertionError(f"phase 17 (c) the scan launched {counts} in {batches} batches; "
+                             f"want {want}")
+    ref = np.concatenate([api.analyze_pcm(pcm[k : k + batch], [secs] * len(pcm[k : k + batch]),
+                                          device=device) for k in range(0, n, batch)])
+    err = within("phase 17 (c) the scan", scan.features, ref, "analyze_pcm of the same PCM", 1e-3)
+    times = scans[0]
+    log(f"tools (phase 17) (c) demo_scale: {' | '.join(out)}")
+    log(f"tools (phase 17) (c) demo_scale (main, {total_s:.1f} s): distance matrix "
+        f"{times['distance_matrix'] * 1e3:.3f} ms, top-100 {times['topk'] * 1e3:.3f} ms, k-means "
+        f"{times['kmeans'] * 1e3:.3f} ms; the scan of {n} songs of {secs} s: launches {counts} "
+        f"({batches} batches), rows = analyze_pcm of the same PCM, beats identical, max |diff| "
+        f"{err.max():.2e}; {stage_line(scan.stats)} {label}")
+    return counts
+
+
+def printed_within(label, got, ref):
+    """Rows read back from text (the CSV's "%f") against ``ref``: the same
+    beat counts (durations of 11 s), the other columns within 1e-3; returns
+    their max |diff|."""
+    durs = [11] * len(ref)
+    if got.shape != ref.shape or not np.array_equal(beat_counts(got, durs), beat_counts(ref, durs)):
+        raise AssertionError(f"{label}: beat counts differ from analyze_pcm's rows: {got} {ref}")
+    err = np.abs(got[:, 1:] - ref[:, 1:]).max(axis=0)
+    if not (err <= 1e-3).all():
+        raise AssertionError(f"{label}: differs from analyze_pcm's rows by {err}")
+    return err
+
+
+def examples_part(device, label) -> dict:
+    """Phase 17 (d): each example on an EXAMPLE_SONGS-song ``gen_library``
+    library (decode patched where libav is missing): ``song_api_demo`` and
+    ``distance_demo`` print ``analyze_pcm``'s rows, ``library_scan`` and
+    ``make_playlist`` write the CLI's CSV and m3u for the same files,
+    ``scan_interactive`` scans into a store and resumes, ``analyze_gui``
+    opens the GUI on the card (no display here: it says so) and its
+    ``ScanJob`` writes the scan's rows. Returns launches by example."""
+    import contextlib
+    import csv
+    import io
+    import tempfile
+
+    from bliss_tpu_torch import api, cli
+    from bliss_tpu_torch.examples import (analyze_gui, distance_demo, library_scan,
+                                          make_playlist, scan_interactive, song_api_demo)
+    from bliss_tpu_torch.tools.gen_library import library_pcm, make_library
+
+    dev = ["--device", str(device)]
+    pcm = library_pcm(EXAMPLE_SONGS, 11, seed=1)
+    rows = api.analyze_pcm(pcm, [11] * EXAMPLE_SONGS, device=device)
+    launches, secs = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d, contextlib.ExitStack() as stack:
+        lib = os.path.join(d, "lib")
+        files = make_library(lib, EXAMPLE_SONGS, 11, seed=1)
+        for p in decode_patches(pcm, "(d)"):
+            stack.enter_context(p)
+        os.chdir(d)  # library_scan's store is ./.bliss-store
+        stack.callback(os.chdir, cwd)
+
+        def run(name, fn, argv):
+            buf, err = io.StringIO(), io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                rc = fn(dev + argv)
+            secs[name] = time.perf_counter() - t0
+            launches[name] = launch_counts()
+            return rc, buf.getvalue(), err.getvalue()
+
+        rc, out, _ = run("song_api_demo", song_api_demo.main, [files[0]])
+        vec = out.splitlines()[4].split(":", 1)[1].strip()
+        got = np.array([float(x.split(":")[1]) for x in vec.strip("{}").split(",")], np.float32)
+        if rc != 0 or len(out.splitlines()) != 9:
+            raise AssertionError(f"phase 17 (d) song_api_demo: rc {rc}: {out}")
+        within("phase 17 (d) song_api_demo", got[None], rows[:1], "analyze_pcm's row")
+        rc, out, _ = run("distance_demo", distance_demo.main, files[:2])
+        dist = float(out.splitlines()[3].split(":", 1)[1])
+        want = float(np.linalg.norm(rows[0].astype(np.float64) - rows[1]))
+        if rc != 0 or not abs(dist - want) <= 1e-3:
+            raise AssertionError(f"phase 17 (d) distance_demo: rc {rc}, {dist} against {want}")
+        rc, _, _ = run("library_scan", library_scan.main, [lib, "example.csv"])
+        run_cli(dev + ["scan", lib, "-o", "cli.csv", "--store", "cli-store"])
+        scan_rows = read_csv("cli.csv")
+        if rc != 0 or read_csv("example.csv") != scan_rows or len(scan_rows) != EXAMPLE_SONGS + 1:
+            raise AssertionError("phase 17 (d) library_scan: its CSV is not the CLI scan's")
+        csv_rows = np.array([[float(x) for x in r[1:5]] for r in scan_rows[1:]], np.float64)
+        err = printed_within("phase 17 (d) library_scan", csv_rows, rows)
+        rc, _, _ = run("make_playlist", make_playlist.main, [files[2], lib, "example.m3u"])
+        run_cli(dev + ["playlist", files[2], lib, "-o", "cli.m3u"])
+        with open("example.m3u") as a, open("cli.m3u") as b:
+            m3u = a.read().splitlines()
+            if rc != 0 or m3u != b.read().splitlines() or len(m3u) != EXAMPLE_SONGS + 1:
+                raise AssertionError("phase 17 (d) make_playlist: its m3u is not the CLI's")
+        for attempt in ("first", "resumed"):
+            rc, out, _ = run(f"scan_interactive_{attempt}", scan_interactive.main, [lib, "store"])
+            if rc != 0 or out.strip() != f"done: {EXAMPLE_SONGS}/{EXAMPLE_SONGS} songs analyzed (0 failed)":
+                raise AssertionError(f"phase 17 (d) scan_interactive ({attempt}): rc {rc}: {out}")
+        if any(launches["scan_interactive_resumed"].values()):
+            raise AssertionError(f"phase 17 (d) scan_interactive resumed with launches "
+                                 f"{launches['scan_interactive_resumed']}")
+        rc, _, gui_err = run("analyze_gui", analyze_gui.main, [])
+        job = analyze_gui.ScanJob(lib, os.path.join(d, "gui.csv"), device=device)
+        n_rows = job.run()
+        with open(os.path.join(d, "gui.csv"), newline="") as fh:
+            gui_rows = list(csv.reader(fh, **analyze_gui.CSV_DIALECT))
+        gui_vals = np.array([[float(r[i]) for i in (3, 4, 5, 2)] for r in gui_rows], np.float64)
+        if n_rows != EXAMPLE_SONGS or [r[0] for r in gui_rows] != files:
+            raise AssertionError(f"phase 17 (d) analyze_gui's ScanJob wrote {n_rows} rows")
+        printed_within("phase 17 (d) analyze_gui's ScanJob", gui_vals, rows)
+    for name in ("song_api_demo", "distance_demo", "library_scan", "make_playlist",
+                 "scan_interactive_first"):
+        if {k for k, v in launches[name].items() if v} != {"prepass", "fused_all"}:
+            raise AssertionError(f"phase 17 (d) {name} launched {launches[name]}")
+    gui_text = gui_err.strip().splitlines()[0] if rc == 1 else f"rc {rc}"
+    log(f"tools (phase 17) (d) the examples on {EXAMPLE_SONGS} generated songs of 11 s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; song_api_demo's vector and distance_demo's distance are analyze_pcm's; "
+        f"library_scan's CSV = the CLI scan's (max |diff| to analyze_pcm {err.max():.2e}), "
+        f"make_playlist's m3u = the CLI playlist's; scan_interactive resumed with no launch; "
+        f"analyze_gui: {gui_text!r}, its ScanJob's rows the scan's; launches "
+        f"{ {k: v for k, v in launches.items()} } {label}")
+    return {k: v for k, v in launches.items() if k != "analyze_gui"}
+
+
+def edge_part(device, label) -> dict:
+    """Phase 17 (e): ``edge_songs`` at B=1 under ``for_gpu()`` through the
+    prepass and K1 on the card, against the same call with the plain
+    versions of both: the same NaN/inf pattern, beats identical, the finite
+    columns within 5e-4 (a constant song's frequency, the log of a ratio of
+    float32 rounding noise, within 5e-2 of ``for_parity()`` on the card).
+    Returns the launches."""
+    from bliss_tpu_torch import AnalysisConfig
+    from bliss_tpu_torch.features.analyze import analyze_batch
+    from bliss_tpu_torch.features.types import PCMBatch
+    from bliss_tpu_torch.kernels import fused_all as fa
+    from bliss_tpu_torch.kernels import fused_stats as fs
+
+    cfg = AnalysisConfig.for_gpu()
+    total = dict.fromkeys(launch_counts(), 0)
+    worst, notes = 0.0, []
+    for name, (pcm, dur) in edge_songs().items():
+        batch = PCMBatch.from_arrays([pcm], [dur], device=device)
+        reset_counts()
+        got = analyze_batch(batch, cfg).cpu().numpy()[0]
+        counts = launch_counts()
+        if counts != {"prepass": 1, "fused_all": 1, "fused_stats": 0, "stft_power": 0}:
+            raise AssertionError(f"phase 17 (e) {name} launched {counts}")
+        for k, v in counts.items():
+            total[k] += v
+        with mock.patch.object(fs, "prepass_sums", fs.prepass_sums_reference), \
+                mock.patch.object(fa, "fused_all_call", fa.fused_all_reference):
+            ref = analyze_batch(batch, cfg).cpu().numpy()[0]
+        for test in (np.isnan, np.isposinf, np.isneginf):
+            if not np.array_equal(test(got), test(ref)):
+                raise AssertionError(f"phase 17 (e) {name}: {got} against the plain path's {ref}")
+        cols = np.isfinite(ref)
+        if name == "constant_1234":
+            cols[2] = False
+            parity = analyze_batch(batch, AnalysisConfig.for_parity()).cpu().numpy()[0]
+            d = abs(float(got[2]) - float(parity[2]))
+            if not d <= 5e-2:
+                raise AssertionError(f"phase 17 (e) {name}: frequency {got[2]} against "
+                                     f"for_parity()'s {parity[2]}")
+            notes.append(f"{name}'s frequency {got[2]:.5f} (plain {ref[2]:.5f}, for_parity() "
+                         f"{parity[2]:.5f})")
+        if (np.isfinite(ref[0]) and got[0] != ref[0]) or not (
+                np.abs(got[cols] - ref[cols]) <= 5e-4).all():
+            raise AssertionError(f"phase 17 (e) {name}: {got} against the plain path's {ref}")
+        worst = max([worst, *np.abs(got[cols] - ref[cols]).tolist()])
+    log(f"tools (phase 17) (e) {len(edge_songs())} degenerate songs at B=1 through the prepass and "
+        f"K1 against their plain versions: NaN/inf patterns identical, beats identical, max |diff| "
+        f"{worst:.2e}; {'; '.join(notes)}; launches {total} {label}")
+    return total
+
+
+def tools_phase(device, label) -> dict:
+    """Phase 17: the tools and examples (M12), (a)-(e); TF32 must be off.
+    Returns launches by part."""
+    t0 = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is allowed; phase 17's float32 products need full float32")
+    launches = quality_part(device, label)
+    t1 = time.perf_counter()
+    similarity_tool_part(device, label)
+    t2 = time.perf_counter()
+    launches["demo_scale_scan"] = demo_scale_part(device, label)
+    t3 = time.perf_counter()
+    launches.update({f"example_{k}": v for k, v in examples_part(device, label).items()})
+    t4 = time.perf_counter()
+    launches["edge_songs"] = edge_part(device, label)
+    log(f"tools (phase 17) took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f}, "
+        f"(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, (e) "
+        f"{time.perf_counter() - t4:.1f}")
+    return launches
+
+
 def mesh_phase(arrays, durations, out, outh, ext_rows, longs, long_durs, device, label):
     """Phase 15: the mesh (M10), (a)-(g); TF32 must be off. Returns (a)'s
     launches by mesh, (b)'s kernel-vs-plain results and (c)'s launches by
@@ -3457,6 +3873,22 @@ def compat_phase(arrays, durations, out, device, label) -> dict:
     return launches
 
 
+# --- phase 17: the tools and examples (M12) -------------------------------------
+
+# tools/quality_benchmark.py's runs: tests/test_quality.py's size and the
+# script's default
+QUALITY_SIZES = ((6, 4, 5.0), (8, 6, 11.0))
+# bliss_tpu's analyze_batch_ext_jit under the script's config at 6 x 4 x
+# 5 s, through the script's retrieval_metrics on the CPU (held to
+# bliss_tpu's output by tests/test_torch_quality.py, as the card has no JAX)
+QUALITY_BLISS_TPU = {
+    "recall_at_k_core4": 0.5138888888888888,
+    "recall_at_k_extended": 0.9027777777777778,
+    "separation_core4": 1.8499802350997925,
+    "separation_extended": 3.118532180786133,
+}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3752,6 +4184,8 @@ def main() -> int:
     del long_pcm, serve_long
     # 16. the C compat library and the differential fuzz (M11)
     compat_launches = compat_phase(arrays, durations, out, "cuda", label)
+    # 17. the tools and examples (M12)
+    tools_launches = tools_phase(torch.device("cuda"), label)
     for row, counts in mesh_matrix.items():
         matrix_rows[row] = counts
         for k, v in counts.items():
@@ -3821,6 +4255,7 @@ def main() -> int:
             e["mesh_launches"] = {m: c[e["name"]] for m, c in mesh_launches.items()}
             e["compat_launches"] = {m: c[e["name"]] for m, c in compat_launches.get("compat", {}).items()}
             e["fuzz_launches"] = {m: c[e["name"]] for m, c in compat_launches["fuzz"].items()}
+            e["tools_launches"] = {part: c[e["name"]] for part, c in tools_launches.items()}
             if e["name"] in mesh_shard:
                 errs, ms, plain_ms = mesh_shard[e["name"]]
                 e["mesh_shard"] = {"max_abs_err": max(a for a, _ in errs.values()),

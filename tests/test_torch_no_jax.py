@@ -17,7 +17,9 @@ analyzer methods, and runs the similarity (``kmeans``,
 small store), imports the serving layer (``server``, ``http_gateway``,
 ``gui``, ``utils.debug``) and answers a status request, and imports the
 mesh (``bliss_tpu_torch.parallel``) and analyzes a batch over a 2x2 mesh of
-the CPU."""
+the CPU, and imports the tools (``bliss_tpu_torch.tools``) and the
+examples (``bliss_tpu_torch.examples``) and runs the quality benchmark, the
+library generator and the similarity bench small."""
 
 import os
 import subprocess
@@ -151,6 +153,18 @@ assert compat.library_path and compat.abi_check_path
 fuzz.SECONDS = (3, 4)
 res = fuzz.run_batched_device_fuzz(1, "device_exact", device="cpu", verbose=False, workers=1)
 assert (res["cases"], res["divergent"]) == (1, 0), res
+from bliss_tpu_torch.tools import bench_similarity, demo_scale, gen_library, quality_benchmark
+from bliss_tpu_torch.examples import (analyze_gui, distance_demo, library_scan, make_playlist,
+                                      scan_interactive, song_api_demo)
+q = quality_benchmark.run(2, 2, 1.0, device="cpu")
+assert q["features"].shape == (4, 49) and np.isfinite(q["features"]).all(), q
+with tempfile.TemporaryDirectory() as d:
+    (lib_file,) = gen_library.make_library(d, 1, 1, 0)
+    assert decode(lib_file).samples.shape == gen_library.library_pcm(1, 1, 0)[0].shape
+record, _ = bench_similarity.bench(300, 4, 5, 128, 1, "cpu")
+assert record["correct_row0"], record
+assert demo_scale.timed and song_api_demo.main and distance_demo.main and library_scan.main
+assert make_playlist.main and scan_interactive.main and analyze_gui.ScanJob is gui.ScanJob
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "bliss_tpu") and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", out.tolist())
