@@ -101,7 +101,7 @@ def cases(inp: dict) -> list[dict]:
         case(f"S4 matred cheb{deg}/{hw}", "A3",
              lambda deg=deg, hw=hw: matred.proto_call(x, a, b, deg, hw, chunk=chunk),
              lambda deg=deg, hw=hw: matred.matred_reference(x, a, b, deg, hw, chunk=chunk),
-             bounds.matred_work(B, L, ncheb=deg + 1), 2 * B * L)
+             bounds.matred_work(B, L, ncheb=deg + 1, halfwidth=hw), 2 * B * L)
     return out
 
 

@@ -6,7 +6,8 @@ and the operations its function needs on these inputs over the peak rate
 of the pipe that does them (the larger of the per-pipe times, since the
 pipes run side by side). Peaks are NVIDIA's data-sheet figures for the SXM
 part at its 700 W limit, dense: 3.35 TB/s of HBM3, 67 TFLOP/s float32 and
-34 TFLOP/s float64 on the CUDA cores.
+34 TFLOP/s float64 on the CUDA cores, 67 TFLOP/s float64 on the tensor
+cores ("fp64_tc").
 
 Each ``*_work`` function counts, from its call's shapes (and, where the
 work depends on the data, from the data's own frame counts), the bytes and
@@ -23,9 +24,11 @@ PEAK = {
     "bytes": 3.35e12,
     "fp32": 67e12,
     "fp64": 34e12,
+    "fp64_tc": 67e12,
 }
 BLK = 256  # hop block: the stats kernel's row
 CHEB_COEFFS = 19  # the shipped amplitude fit: degree 18
+CHEB_HALFWIDTH = 200  # over +-200
 FRAME = 512  # STFT window, mono samples
 
 
@@ -47,31 +50,49 @@ def add(*works: dict) -> dict:
 
 
 def _cheb_flops(ncheb: int) -> int:
-    # 1000 - |s + 1|, the fold and clamp, then Clenshaw: an FMA and a
-    # subtract a coefficient
+    # one value of the weight: 1000 - |s + 1|, the fold and clamp, then
+    # Clenshaw: an FMA and a subtract a coefficient
     return 12 + 3 * (ncheb - 1)
+
+
+def weight_table_flops(ncheb: int, halfwidth: float) -> int:
+    """The amplitude weight T(1000 - |s + 1|) of an int16 sample is 1 or 0
+    but for the 2 ceil(halfwidth) values of |s + 1| around 1000, which
+    depend on the fit alone: the function needs its series once for each,
+    once a call; a sample then needs a lookup (integer work) and an add."""
+    return 2 * math.ceil(halfwidth) * _cheb_flops(ncheb)
 
 
 def stats_work(
     B: int, L: int, *, nb: int = 1, taps: int = 17, cheb: bool = True,
     conv: bool = True, warm: bool = True, fir_bytes: int = 8,
-    ncheb: int = CHEB_COEFFS,
+    ncheb: int = CHEB_COEFFS, halfwidth: float = CHEB_HALFWIDTH,
+    fir_pipe: str = "fp64",
 ) -> dict:
     """``stats_kernel`` (K2, K1's first launch, the ablation A1): per sample
     the normalization (an FMA); per band the FIR (``taps`` FMAs), z^2 and
     the sums of z, z^2 and (-1)^t z (an add or a subtract each; a sample
     goes to its block's tail or head pieces, never both); per block head
     sample the correction (K FMAs), y = z + delta and y's own square and
-    three sums; all in the FIR's type. The amplitude weight and its sum in
-    float32. Reads int16 [B, L]; writes wsum and rownz (float32) and
-    [B, nb, 9, L/256] sums."""
+    three sums; all in the FIR's type. The amplitude weights' table
+    (``weight_table_flops``) and their sum, an add a sample, in float32.
+    Reads int16 [B, L]; writes wsum and rownz (float32) and
+    [B, nb, 9, L/256] sums. ``fir_pipe="fp64_tc"`` counts the float64 FIR's
+    FMAs on the fp64 tensor cores, the rest on the CUDA cores: the least
+    time of the same function where the FIR runs as matrix products."""
     n, nbf, K = B * L, B * (L // BLK), taps - 1
-    per_band = 4 + (2 * taps if conv else 0) + (K * (2 * K + 5) / BLK if warm else 0)
+    fir = 2 * taps if conv else 0
+    per_band = 4 + fir + (K * (2 * K + 5) / BLK if warm else 0)
     work = {
         "bytes": 2 * n + 8 * nbf + fir_bytes * 9 * nb * nbf,
-        "fp32": n * ((_cheb_flops(ncheb) if cheb else 0) + 1),
+        "fp32": n + (weight_table_flops(ncheb, halfwidth) if cheb else 0),
     }
     pipe = "fp64" if fir_bytes == 8 else "fp32"
+    if fir_pipe != "fp64" and (fir_pipe not in PEAK or fir_bytes != 8):
+        raise ValueError(f"fir_pipe must be 'fp64' or, for a float64 FIR, 'fp64_tc'; got {fir_pipe!r}")
+    if fir_pipe != "fp64" and fir:
+        work[fir_pipe] = n * nb * fir
+        per_band -= fir
     work[pipe] = work.get(pipe, 0) + n * (2 + nb * per_band)
     return work
 
@@ -99,10 +120,11 @@ def power_work(frames: int, B: int) -> dict:
     }
 
 
-def fused_all_work(B: int, L: int, frames: int) -> dict:
+def fused_all_work(B: int, L: int, frames: int, *, fir_pipe: str = "fp64") -> dict:
     """``bliss_fused_all`` (K1): K2's and K3's work, with the PCM read once
-    (the stats pass reads every sample, so K3's frames add no bytes)."""
-    work = add(stats_work(B, L), power_work(frames, B))
+    (the stats pass reads every sample, so K3's frames add no bytes);
+    ``fir_pipe`` as ``stats_work``'s."""
+    work = add(stats_work(B, L, fir_pipe=fir_pipe), power_work(frames, B))
     work["bytes"] -= 2048 * frames
     return work
 
@@ -123,13 +145,19 @@ def probe_work(mode: str, B: int, R: int, nblk: int, elem_bytes: int) -> dict:
     return {"bytes": elem_bytes * read + 4 * B * R * 8, "fp32": ops * read}
 
 
-def matred_work(B: int, L: int, *, taps: int = 17, ncheb: int = CHEB_COEFFS) -> dict:
+def matred_work(
+    B: int, L: int, *, taps: int = 17, ncheb: int = CHEB_COEFFS,
+    halfwidth: float = CHEB_HALFWIDTH,
+) -> dict:
     """The matrix-reduction kernel A3 computes ``stats_kernel``'s function
     in another layout (the head's pieces are delta's share, 2 z delta +
-    delta^2 in place of y^2), so its least work is the same operations;
-    whatever products it spends on the sums (its tensor-core selector
-    matrices) are its algorithm's, not its function's. Reads int16 [B, L];
-    writes [B, L/256, 8] float64."""
-    work = stats_work(B, L, taps=taps, ncheb=ncheb)
+    delta^2 in place of y^2), so its least work is the same operations,
+    with the FIR's FMAs on the fp64 tensor cores where A3 runs them and
+    the weights added in float64; whatever products the tiles spend on the
+    Toeplitz matrix's zeros are its algorithm's, not its function's. Reads
+    int16 [B, L]; writes [B, L/256, 8] float64."""
+    work = stats_work(B, L, taps=taps, ncheb=ncheb, halfwidth=halfwidth, fir_pipe="fp64_tc")
     work["bytes"] = 2 * B * L + 8 * 8 * B * (L // BLK)
+    work["fp32"] -= B * L
+    work["fp64"] += B * L
     return work

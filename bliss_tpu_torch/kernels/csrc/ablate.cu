@@ -5,23 +5,34 @@
 //
 //   A1 bliss_stats_ablate: stats_kernel with stages switched off
 //      (scripts/ablate_fused.py make_kernel, run_variant);
-//   A2 bliss_probe: read-and-reduce probes with the launch geometry of
-//      stats_kernel's first port (scripts/ablate_fused.py run_variant2's
-//      bodies, scripts/ablate_dma.py, scripts/ablate_packread.py);
-//   A3 bliss_matred_stats: the statistics with every reduction done as an
-//      fp64 tensor-core product by selector matrices
+//   A2 bliss_probe: read-and-reduce probes (scripts/ablate_fused.py
+//      run_variant2's bodies, scripts/ablate_dma.py,
+//      scripts/ablate_packread.py);
+//   A3 bliss_matred_stats: the statistics with the FIR, the window-reset
+//      correction and its inputs as fp64 tensor-core products
 //      (scripts/proto_matred.py make_proto, proto_call).
 //
-// What bounds them on this card: A1 is stats_kernel itself (fp64
-// arithmetic on the CUDA cores, 34 TFLOP/s peak, over 2 bytes a sample),
-// one warp a hop block. A2 keeps the geometry stats_kernel had before it
-// became one warp a hop block: a 256-thread block walks 8 hop blocks, one
-// element a thread, and sums each 256-wide row with block_sums (two block
-// barriers a row); at full width its time is that geometry's floor for the
-// read plus its per-row barriers, and with 1 to 6 adds an element it is
-// bound by the bytes. A3 moves the block reductions of that geometry from
-// warp shuffles and barriers to mma.sync m8n8k4 f64 (67 TFLOP/s fp64
-// tensor-core peak), most of whose products are by the selectors' zeros.
+// All three run on stats_kernel's geometry: a persistent grid of SWARPS-warp
+// blocks, as many as fit on the card, one warp a 256-element row (a hop
+// block), 16-byte loads with the next row's issued before this row's
+// arithmetic, and no block barrier in the row loop. So each measures the
+// floor of the geometry the main path runs.
+//
+// What bounds them on this card: A1 is stats_kernel itself (fp64 arithmetic
+// on the CUDA cores, 34 TFLOP/s peak, over 2 bytes a sample). A2 reads each
+// element once and does 0 to 11 float32 operations with it, so the bytes
+// bound it (3.35 TB/s); a warp walks a stripe of PRUN consecutive rows of
+// one chunk, sums each row in its lanes and then by shuffles, and lane k
+// keeps row k's sums, so the stripe's outputs leave as coalesced rows of
+// 32. A3 moves the FIR's ~34 fp64 FLOP a sample onto the fp64 tensor cores
+// (67 TFLOP/s; mma.sync m16n8k8, a shape sm_90 adds for f64, four times the
+// work of the m8n8k4 the first port used), so its bound
+// (kernels/bounds.py matred_work) leaves the fp64 CUDA cores for its
+// bytes, 2 read a sample and 64 written a hop block: the FIR of
+// 32 segments of 8 outputs is a product of the ring of normalized samples,
+// read in place as an im2col matrix, with the banded Toeplitz matrix of
+// the taps, and the correction delta = M h of a run's 8 hop blocks is one
+// product of M with their 8 histories.
 
 #include <type_traits>
 
@@ -29,55 +40,9 @@
 
 namespace {
 
-// ---- the geometry and reductions of A2 and A3 ------------------------------
-// (stats_kernel's before it became one warp a hop block; kept as they were
-// so that the probes and A3 measure what they measured)
-
-constexpr int BLK = 256;            // tempo hop: threads per stats block
-constexpr int NWARP = BLK / 32;
-constexpr int BLOCKS_PER_CTA = 8;   // hop blocks each stats block walks
-
-// Sums v[i] over the 256 threads of the block and stores total i at
-// out[i * stride]. Fixed order, so results do not vary run to run. Ends with
-// a barrier, so shared memory read before the call may be rewritten after.
-template <typename T, int N>
-__device__ __forceinline__ void block_sums(const T (&v)[N], T (*red)[NWARP],
-                                           T* out, size_t stride) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const T s = warp_sum(v[i]);
-    if (lane == 0) red[i][warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    T s = 0;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) s += red[threadIdx.x][w];
-    out[threadIdx.x * stride] = s;
-  }
-  __syncthreads();
-}
-
-// Smoothing-kernel CDF: Chebyshev series of the positive half, folded by
-// symmetry (bliss_tpu/kernels/fused_stats.py::_cheb_T).
-__device__ __forceinline__ float cheb_T(float m, const float* c, int n,
-                                        float hw) {
-  const bool neg = m < 0.f;
-  const float mf = neg ? -m - 1.f : m;
-  const float t = fminf(fmaxf((2.f * mf - hw) / hw, -1.f), 1.f);
-  float b1 = 0.f, b2 = 0.f;
-  for (int k = n - 1; k >= 1; --k) {
-    const float nb1 = c[k] + 2.f * t * b1 - b2;
-    b2 = b1;
-    b1 = nb1;
-  }
-  float val = c[0] + t * b1 - b2;
-  if (mf >= hw) val = 1.f;
-  return neg ? 1.f - val : val;
-}
-
 // ---- A2: read and reduce probes -------------------------------------------
+
+constexpr int PRUN = 32;  // rows a warp walks: one 32-row stripe of output
 
 // out[b, c, i, j] for row j of chunk c (rows of 256 elements, nblk rows a
 // chunk), i = 0..7:
@@ -90,190 +55,459 @@ __device__ __forceinline__ float cheb_T(float m, const float* c, int n,
 //            hi = w >> 16 (two int16 samples a word, little-endian).
 enum ProbeMode { ZERO = 0, SLICE = 1, CONVERT = 2, SUM1 = 3, SUM6 = 4, PACKED = 5 };
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(BLK) probe_kernel(
-    const T* __restrict__ x, int rows, int nblk, float* __restrict__ out) {
-  constexpr int NS = MODE == SUM6 ? 6 : 1;
-  __shared__ float red[NS][NWARP];
-  __shared__ float res[NS];
+// A lane's 8 elements of a 256-element row, as its 16-byte loads read
+// them: int16, elements 8l .. 8l+7 (one load); 4-byte types, 4l .. 4l+3 and
+// 128+4l .. 128+4l+3 (two loads, each of them coalesced over the warp).
+template <typename T>
+struct LaneRow {
+  static constexpr int NW = sizeof(T) == 2 ? 1 : 2;
+  int4 w[NW];
+  __device__ __forceinline__ void load(const int4* row, int lane) {
+#pragma unroll
+    for (int q = 0; q < NW; ++q) w[q] = __ldg(row + 32 * q + lane);
+  }
+};
 
-  const int b = blockIdx.y, t = threadIdx.x, nc = rows / nblk;
-  const int r0 = blockIdx.x * BLOCKS_PER_CTA;
-  const int r1 = min(r0 + BLOCKS_PER_CTA, rows);
-  const T* xb = MODE == ZERO ? nullptr : x + (size_t)b * rows * BLK;
-  for (int r = r0; r < r1; ++r) {
-    const int c = r / nblk, j = r - c * nblk;
-    float* o = out + (size_t)(b * nc + c) * 8 * nblk + j;  // o[i * nblk]
-    if (MODE == ZERO || MODE == SLICE || MODE == CONVERT) {
-      if (t < 8) {
-        float v = 0.f;
-        if (MODE == SLICE && j < BLK) v = (float)xb[((size_t)c * nblk + t) * BLK + j];
-        if (MODE == CONVERT) v = (float)xb[(size_t)c * nblk * BLK];
-        o[(size_t)t * nblk] = v;
-      }
-      continue;
+// The lane's 8 elements as float32, in the order it sums them.
+template <typename T, int MODE>
+__device__ __forceinline__ void lane_values(const LaneRow<T>& r, float (&f)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    const int words[4] = {r.w[0].x, r.w[0].y, r.w[0].z, r.w[0].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      f[2 * q] = (float)((int)((unsigned)words[q] << 16) >> 16);
+      f[2 * q + 1] = (float)(words[q] >> 16);
     }
-    const T v = xb[(size_t)r * BLK + t];
-    float f;
-    if constexpr (MODE == PACKED) {
-      const int w = (int)v;
-      f = (float)((int)((unsigned)w << 16) >> 16) + (float)(w >> 16);
-    } else {
-      f = (float)v;
-    }
-    if constexpr (MODE == SUM6) {
-      const float vals[6] = {f, f * f, f + 1.f, f * 2.f, f - 1.f, f * 0.5f};
-      block_sums<float, 6>(vals, red, res, 1);
-      if (t < 8) o[(size_t)t * nblk] = res[t % 6];
-    } else {
-      const float vals[1] = {f};
-      block_sums<float, 1>(vals, red, res, 1);
-      if (t < 8) o[(size_t)t * nblk] = res[0];
+  } else {
+    const int words[8] = {r.w[0].x, r.w[0].y, r.w[0].z, r.w[0].w,
+                          r.w[1].x, r.w[1].y, r.w[1].z, r.w[1].w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (MODE == PACKED)
+        f[j] = (float)((int)((unsigned)words[j] << 16) >> 16) + (float)(words[j] >> 16);
+      else if constexpr (std::is_same<T, float>::value)
+        f[j] = __int_as_float(words[j]);
+      else
+        f[j] = (float)words[j];
     }
   }
+}
+
+// Persistent grid of SWARPS-warp blocks; each warp takes tasks (song b,
+// chunk c, stripe of PRUN rows j0 ..) in turn and writes the stripe's
+// [8, PRUN] outputs, lane l the row j0 + l. A sum mode reads each row with
+// one or two 16-byte loads a lane, sums the lane's 8 terms in order, then
+// over the warp with warp_sum (shuffle offsets 16, 8, 4, 2, 1), so every
+// sum is taken in the same order on every run.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(SWARPS * 32) probe_kernel(
+    const T* __restrict__ x, int B, int rows, int nblk, float* __restrict__ out) {
+  constexpr int NS = MODE == SUM6 ? 6 : 1;
+  constexpr int W4 = HOP * (int)sizeof(T) / 16;  // 16-byte words a row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nc = rows / nblk, stripes = (nblk + PRUN - 1) / PRUN;
+  const long long tasks = (long long)B * nc * stripes;
+  for (long long task = (long long)blockIdx.x * SWARPS + warp; task < tasks;
+       task += (long long)gridDim.x * SWARPS) {
+    const long long bc = task / stripes;  // b * nc + c
+    const int j0 = (int)(task - bc * stripes) * PRUN, n = min(PRUN, nblk - j0);
+    const T* xc = x + (size_t)bc * nblk * HOP;  // the chunk's first row
+    float v[8];  // outputs i = 0..7 of row j0 + lane
+    if constexpr (MODE == ZERO) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = 0.f;
+    } else if constexpr (MODE == SLICE) {
+      const int j = j0 + lane;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = (lane < n && j < HOP) ? (float)xc[(size_t)i * HOP + j] : 0.f;
+    } else if constexpr (MODE == CONVERT) {
+      const float f = (float)xc[0];  // one address for the whole warp
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = f;
+    } else {
+      const int4* r4 = reinterpret_cast<const int4*>(xc + (size_t)j0 * HOP);
+      float mine[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) mine[i] = 0.f;
+      LaneRow<T> nxt;
+      nxt.load(r4, lane);
+      for (int k = 0; k < n; ++k) {
+        const LaneRow<T> cur = nxt;
+        if (k + 1 < n) nxt.load(r4 + (size_t)(k + 1) * W4, lane);
+        float f[8];
+        lane_values<T, MODE>(cur, f);
+        float s[NS];
+        if constexpr (MODE == SUM6) {
+#pragma unroll
+          for (int i = 0; i < 6; ++i) s[i] = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[0] += f[j];
+            s[1] += __fmul_rn(f[j], f[j]);
+            s[2] += f[j] + 1.f;
+            s[3] += f[j] * 2.f;
+            s[4] += f[j] - 1.f;
+            s[5] += f[j] * 0.5f;
+          }
+        } else {
+          s[0] = f[0];
+#pragma unroll
+          for (int j = 1; j < 8; ++j) s[0] += f[j];
+        }
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          s[i] = warp_sum(s[i]);
+          if (lane == k) mine[i] = s[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = mine[i % NS];
+    }
+    if (lane < n) {
+      float* o = out + (size_t)bc * 8 * nblk + j0 + lane;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[(size_t)i * nblk] = v[i];
+    }
+  }
+}
+
+// The persistent grid of kernel: as many SWARPS-warp blocks as fit on the
+// card at once (smem bytes of dynamic shared memory each), or fewer when
+// there are fewer tasks; 0 if a query failed (rc says why).
+template <typename K>
+int persistent_grid(K kernel, long long tasks, size_t smem, cudaError_t& rc) {
+  int dev = 0, sms = 0, per_sm = 0;
+  rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SWARPS * 32, smem);
+  if (rc != cudaSuccess) return 0;
+  const long long wanted = (tasks + SWARPS - 1) / SWARPS;
+  return (int)std::min<long long>(wanted, (long long)std::max(per_sm, 1) * sms);
+}
+
+template <typename T, int MODE>
+int launch_probe_mode(const void* x, int B, int rows, int nblk, void* out,
+                      cudaStream_t st) {
+  auto kernel = probe_kernel<T, MODE>;
+  const long long tasks = (long long)B * (rows / nblk) * ((nblk + PRUN - 1) / PRUN);
+  cudaError_t rc;
+  const int grid = persistent_grid(kernel, tasks, 0, rc);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<grid, SWARPS * 32, 0, st>>>((const T*)x, B, rows, nblk, (float*)out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_probe(int mode, const void* x, int B, int rows, int nblk,
                  void* out, cudaStream_t st) {
-  const dim3 grid((rows + BLOCKS_PER_CTA - 1) / BLOCKS_PER_CTA, B);
-  const T* xt = (const T*)x;
-  float* o = (float*)out;
   switch (mode) {
-    case ZERO: probe_kernel<T, ZERO><<<grid, BLK, 0, st>>>(xt, rows, nblk, o); break;
-    case SLICE: probe_kernel<T, SLICE><<<grid, BLK, 0, st>>>(xt, rows, nblk, o); break;
-    case CONVERT: probe_kernel<T, CONVERT><<<grid, BLK, 0, st>>>(xt, rows, nblk, o); break;
-    case SUM1: probe_kernel<T, SUM1><<<grid, BLK, 0, st>>>(xt, rows, nblk, o); break;
-    case SUM6: probe_kernel<T, SUM6><<<grid, BLK, 0, st>>>(xt, rows, nblk, o); break;
+    case ZERO: return launch_probe_mode<T, ZERO>(x, B, rows, nblk, out, st);
+    case SLICE: return launch_probe_mode<T, SLICE>(x, B, rows, nblk, out, st);
+    case CONVERT: return launch_probe_mode<T, CONVERT>(x, B, rows, nblk, out, st);
+    case SUM1: return launch_probe_mode<T, SUM1>(x, B, rows, nblk, out, st);
+    case SUM6: return launch_probe_mode<T, SUM6>(x, B, rows, nblk, out, st);
     case PACKED:
-      if constexpr (std::is_same<T, int32_t>::value) {
-        probe_kernel<T, PACKED><<<grid, BLK, 0, st>>>(xt, rows, nblk, o);
-        break;
-      }
+      if constexpr (std::is_same<T, int32_t>::value)
+        return launch_probe_mode<T, PACKED>(x, B, rows, nblk, out, st);
       return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
-// ---- A3: reductions as fp64 tensor-core products --------------------------
+// ---- A3: the FIR and the correction as fp64 tensor-core products ----------
 
-// D = A B + D for one warp, A 8x4 row-major, B 4x8 column-major, fp64. Lane
-// l holds A[l/4][l%4], B[l%4][l/4] and D[l/4][2*(l%4) + {0, 1}] (PTX ISA,
-// matrix fragments for mma.m8n8k4 with .f64).
-__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a,
-                                        double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
+// D += A B for one warp, A 16x8 row-major, B 8x8 column-major, fp64. With
+// g = lane / 4 and q = lane % 4, lane l holds a[i] = A[g + 8 (i & 1)][q +
+// 4 (i >> 1)], b[i] = B[q + 4 i][g] and d[i] = D[g + 8 (i >> 1)][2 q + (i &
+// 1)] (PTX ISA, matrix fragments for mma.m16n8k8 with .f64; sm_90).
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-struct MatredSmem {
-  double ext[MAX_K + BLOCKS_PER_CTA * BLK];  // [history | 8 blocks], normalized
-  double z[BLOCKS_PER_CTA][BLK];             // the causal FIR
-  float w[BLOCKS_PER_CTA][BLK];              // amplitude weights
-  float nz[BLOCKS_PER_CTA][BLK];             // 1 where the sample is nonzero
-  double d[BLOCKS_PER_CTA][MAX_K];           // head: delta
-  double e[BLOCKS_PER_CTA][MAX_K];           // head: 2 z delta + delta^2
-  double c[NWARP][8][8];                     // each warp's partial product
-  float cs[MAX_CHEB];
-};
+constexpr int MRING = 512;  // a warp's ring of normalized samples, >= HOP + MAX_K
+constexpr int STAB_MAX = 2 * (1002 + MAX_WTAB / 2);  // the weight by sample value
+static_assert(RUN == 8, "a run's 8 hop blocks are the 8 columns of delta's product");
 
-// grid (ranges of 8 hop blocks, songs), 256 threads. Stages the 8 blocks'
-// samples, normalized, behind a (taps-1)-sample history (normalized zero
-// before sample 0), then the pieces z, w, the nonzero flags and, over each
-// block's head, delta and 2 z delta + delta^2, then sums them over each
-// block as C[8 blocks x 8 columns] = sum over pieces of A_piece [8 x 256]
-// times a selector R_piece [256 x 8] of ones, alternating signs and zeros:
-// columns (sum z, sum (-1)^t z, sum z^2, sum delta, sum 2 z delta +
-// delta^2, sum (-1)^t delta, sum w, count of nonzero samples). Warp v takes
-// k in [32v, 32v + 32) in 8 steps of 4; the 8 partial C are summed in a
-// fixed order. out: double [B, nbf, 8].
-__global__ void __launch_bounds__(BLK) matred_stats_kernel(
-    const int16_t* __restrict__ x, int L, int nbf,
+// The ring holds fp64 pairs (elements 2P, 2P+1) in 16-byte slots; pair P
+// sits at slot P ^ ((P >> 3) & 3). A lane's four 16-byte stores of its 8
+// samples and the A fragments' 16-byte loads (8 consecutive pairs a
+// quarter-warp, starting at a multiple of 4) then fall on 8 distinct slots of
+// a 128-byte line, free of bank conflicts.
+__device__ __forceinline__ int ring_slot(int P) {
+  P &= MRING / 2 - 1;
+  return P ^ ((P >> 3) & 3);
+}
+
+// s as a double without a conversion instruction (the SM converts 16 a
+// clock, against 64 fp64 adds): the low word of 2^52 + 2^31 + s is
+// 2^31 + s, and one exact subtract leaves s.
+__device__ __forceinline__ double int_to_double(int s) {
+  return __hiloint2double(0x43300000, s ^ (int)0x80000000) - 4503601774854144.0;
+}
+
+// 16 bytes from global to shared memory without a register, or 16 zero
+// bytes when !valid; completes at cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most one of this thread's groups is in flight
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stages run's raw samples, [blk0 * 256 - KE, blk1 * 256) of song b (zero
+// before sample 0), in raw, a warp's copies of 16 bytes a lane.
+__device__ __forceinline__ void stage_run(int16_t* raw, const int16_t* x, int L,
+                                          int runs, int nbf, int run, int KE, int lane) {
+  const int b = run / runs, blk0 = (run - b * runs) * RUN, blk1 = min(blk0 + RUN, nbf);
+  const long s0 = (long)blk0 * HOP - KE;
+  const int16_t* xb = x + (size_t)b * L;
+  const int nch = (KE + (blk1 - blk0) * HOP) / 8;
+  for (int c = lane; c < nch; c += 32) {
+    const long src = s0 + 8 * c;
+    cp_async16(raw + 8 * c, xb + (src >= 0 ? src : 0), src >= 0);
+  }
+}
+
+// grid: the persistent grid of SWARPS-warp blocks; each warp walks runs of
+// RUN hop blocks of one song, as stats_kernel does. The raw samples of a
+// run and the KE = K rounded up to 8 before it are staged into the warp's
+// shared memory by asynchronous copies issued a run ahead (two buffers),
+// so a warp has its next run's ~4 KB in flight while it computes this one
+// and the PCM is read once plus KE samples a run. Per run: h_n, the K
+// normalized samples before block n of the run (normalized zero before
+// sample 0), and delta = M [h_0 .. h_7] as products (m16n8k8: 16 rows of M
+// by 8 of its columns, the 8 blocks' h as the 8 columns), kept in the
+// warp's rows of deltas; the KE samples before the run, normalized, into
+// the warp's ring. Per block: lane l takes samples 8l .. 8l+7, adds their
+// float32 amplitude weights in float64 (looked up by sample value in a table the
+// block fills once from stats_kernel's table of the Clenshaw series),
+// counts its nonzero samples, and stores them, normalized (2^52 + 2^31 + s
+// less that constant in place of a conversion), to the ring behind the KE
+// before them; then z = A T, A the im2col matrix [32
+// segments of 8 outputs x KE + 8] read from the ring in place, T the banded
+// Toeplitz matrix [KE + 8 x 8] of the taps, T[w][n] = fir[n + KE - w] where
+// 0 <= n + KE - w < taps: two tiles of 16 segments, (KE + 8) / 8 k-steps of
+// 8, with the ring's window offsets 2q and 2q+1 as the step's k = q and q+4
+// so that each A fragment is two 16-byte loads. Each lane then sums its 8
+// outputs (segments g, g+8, g+16, g+24, outputs 2q, 2q+1) and, where t < K,
+// its deltas into the 8 columns (sum z, sum (-1)^t z, sum z^2, sum delta,
+// sum 2 z delta + delta^2, sum (-1)^t delta, wsum, count), and the warp
+// adds them by a reduce-scatter of shuffles (offsets 16, 8, 4 halve the
+// columns a lane holds, 2 and 1 add the last): 9 fp64 shuffles a block,
+// where selector products would spend 15 of 16 rows of every tile on
+// nothing with one block a warp. A non-finite column makes all 8 NaN, as
+// the plain version's selector products do. out: double [B, nbf, 8].
+// NK: (KE + 8) / 8 k-steps of the FIR when it is 2 or 3 (up to 17 taps),
+// with T's fragments then held in registers; 0 for any other length, with
+// T read from shared memory a step. NK = 2 (taps 2..9) serves no script's
+// band; it keeps a 2-tap run on the 17-tap run's code, one FIR k-step
+// shorter, which is how chip_smoke.py's phase 7 timings price a k-step.
+template <int NK>
+__global__ void __launch_bounds__(SWARPS * 32, 4) matred_stats_kernel(
+    const int16_t* __restrict__ x, int B, int L, int nbf,
     const float* __restrict__ alpha, const float* __restrict__ beta,
     const float* __restrict__ cheb, int ncheb, float halfwidth,
     const double* __restrict__ fir, const double* __restrict__ warm,
     int taps, double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  MatredSmem& S = *reinterpret_cast<MatredSmem*>(smem_raw);
+  __shared__ float wtab[MAX_WTAB];
+  __shared__ float stab[STAB_MAX];  // the weight of sample s at s + 1002 + nw
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int K = taps - 1, KE = (K + 7) & ~7, nk = NK ? NK : KE / 8 + 1;
+  const int KD = (K + 15) & ~15;  // rows of M, padded to whole tiles
+  const int RAW = KE + RUN * HOP;  // a run's staged samples
+  double2* const tfrag = reinterpret_cast<double2*>(smem_raw);  // [nk][32]
+  double* const wbase = reinterpret_cast<double*>(tfrag + nk * 32) +
+                        (size_t)warp * (MRING + RUN * KD + RAW / 2);
+  double2* const ring = reinterpret_cast<double2*>(wbase);
+  double* const drow = wbase + MRING;  // delta [RUN][KD] of the run's blocks
+  int16_t* const raw0 = reinterpret_cast<int16_t*>(drow + RUN * KD);  // [2][RAW]
 
-  const int b = blockIdx.y, t = threadIdx.x, K = taps - 1;
-  const int lane = t & 31, warp = t >> 5;
-  if (t < ncheb) S.cs[t] = cheb[t];
-  const double a = alpha[b], be = beta[b];
-  const int16_t* xb = x + (size_t)b * L;
-  const int blk0 = blockIdx.x * BLOCKS_PER_CTA;
-  const int nblk = min(BLOCKS_PER_CTA, nbf - blk0);
-  const long i0 = (long)blk0 * BLK;
-  for (int i = t; i < K + BLOCKS_PER_CTA * BLK; i += BLK) {
-    const long h = i0 - K + i;
-    S.ext[i] = (h >= 0 && i < K + nblk * BLK) ? fma(a, (double)xb[h], be) : 0.0;
-  }
-  __syncthreads();
-
-  for (int j = 0; j < BLOCKS_PER_CTA; ++j) {
-    double z = 0.0;
-    float wv = 0.f, nzv = 0.f;
-    if (j < nblk) {
-      const float s = (float)xb[i0 + (long)j * BLK + t];
-      wv = cheb_T(1000.f - fabsf(s + 1.f), S.cs, ncheb, halfwidth);
-      nzv = s != 0.f ? 1.f : 0.f;
-      const double* e = S.ext + K + j * BLK + t;
-      for (int m = 0; m < taps; ++m) z = fma(__ldg(fir + m), e[-m], z);
-    }
-    if (t < K) {
-      double delta = 0.0;
-      if (j < nblk) {
-        const double* M = warm + (size_t)t * K;
-        const double* h = S.ext + j * BLK;  // the K samples before block j
-        for (int k = 0; k < K; ++k) delta = fma(__ldg(M + k), h[k], delta);
-      }
-      S.d[j][t] = delta;
-      S.e[j][t] = (2.0 * z + delta) * delta;
-    }
-    S.z[j][t] = z;
-    S.w[j][t] = wv;
-    S.nz[j][t] = nzv;
-  }
-  __syncthreads();
-
-  // this lane's A row (hop block) and k offset, and its B entry: row k,
-  // column col of each selector
-  const int row = lane >> 2, q = lane & 3, col = lane >> 2;
-  const double alt = (q & 1) ? -1.0 : 1.0;  // (-1)^k; k0 is a multiple of 4
-  const double rz = col == 0 ? 1.0 : (col == 1 ? alt : 0.0);
-  const double rzz = col == 2 ? 1.0 : 0.0;
-  const double rd = col == 3 ? 1.0 : (col == 5 ? alt : 0.0);
-  const double re = col == 4 ? 1.0 : 0.0;
-  const double rw = col == 6 ? 1.0 : 0.0;
-  const double rn = col == 7 ? 1.0 : 0.0;
-  double c0 = 0.0, c1 = 0.0;
-  const int kbeg = warp * (BLK / NWARP);
-  for (int k0 = kbeg; k0 < kbeg + BLK / NWARP; k0 += 4) {
-    const int k = k0 + q;
-    const double zv = S.z[row][k];
-    mma_f64(c0, c1, zv, rz);
-    mma_f64(c0, c1, zv * zv, rzz);
-    mma_f64(c0, c1, (double)S.w[row][k], rw);
-    mma_f64(c0, c1, (double)S.nz[row][k], rn);
-    if (k0 < K) {  // the head's pieces; the same for the whole warp
-      mma_f64(c0, c1, k < K ? S.d[row][k] : 0.0, rd);
-      mma_f64(c0, c1, k < K ? S.e[row][k] : 0.0, re);
-    }
-  }
-  S.c[warp][row][2 * q] = c0;
-  S.c[warp][row][2 * q + 1] = c1;
-  __syncthreads();
-  if (t < 64) {
-    const int j = t >> 3, cc = t & 7;
-    double s = 0.0;
+  // T's fragments: step kk, lane (g, q): T[8kk + 2q + e][g], e = 0, 1
+  for (int i = threadIdx.x; i < nk * 32; i += blockDim.x) {
+    const int kk = i >> 5, gg = (i & 31) >> 2, qq = i & 3;
+    double te[2];
 #pragma unroll
-    for (int v = 0; v < NWARP; ++v) s += S.c[v][j][cc];
-    if (j < nblk) out[((size_t)b * nbf + blk0 + j) * 8 + cc] = s;
+    for (int e = 0; e < 2; ++e) {
+      const int m = gg + KE - (8 * kk + 2 * qq + e);
+      te[e] = (m >= 0 && m < taps) ? fir[m] : 0.0;
+    }
+    tfrag[i] = make_double2(te[0], te[1]);
   }
+  const int nw = (int)ceilf(halfwidth);
+  for (int i = threadIdx.x; i < 2 * nw; i += blockDim.x) {
+    const bool neg = i >= nw;  // a >= 1001: m < 0
+    const float val = cheb_half((float)(neg ? i - nw : nw - 1 - i), cheb, ncheb, halfwidth);
+    wtab[i] = neg ? 1.f - val : val;
+  }
+  __syncthreads();
+  // the weight of every sample by its value: zero at both ends, where
+  // |s + 1| >= 1001 + nw, so a sample's index clamps into the table
+  const int soff = 1002 + nw, ns = 2 * soff;
+  for (int i = threadIdx.x; i < ns; i += blockDim.x)
+    stab[i] = (i == 0 || i == ns - 1) ? 0.f : cheb_weight(i - soff, wtab, nw);
+  __syncthreads();  // the tables; no block barrier after this one
+  double2 treg[NK ? NK : 1];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) treg[kk] = tfrag[kk * 32 + lane];
+
+  const int runs = (nbf + RUN - 1) / RUN, stride = gridDim.x * SWARPS;
+  int run = blockIdx.x * SWARPS + warp, buf = 0;
+  if (run < runs * B) stage_run(raw0, x, L, runs, nbf, run, KE, lane);
+  cp_async_commit();
+  for (; run < runs * B; run += stride, buf ^= 1) {
+    const int b = run / runs, blk0 = (run - b * runs) * RUN, blk1 = min(blk0 + RUN, nbf);
+    const double a = alpha[b], be = beta[b];
+    const int16_t* const raw = raw0 + buf * RAW;  // raw[KE + i]: sample blk0 * 256 + i
+    if (run + stride < runs * B)
+      stage_run(raw0 + (buf ^ 1) * RAW, x, L, runs, nbf, run + stride, KE, lane);
+    cp_async_commit();
+    cp_async_wait_prior();  // this lane's copies of the run are done
+    __syncwarp();  // and every lane's; the previous run's reads of ring and drow too
+
+    // delta[t][n] = sum_k M[t][k] h_n[k]: A = M (rows t, columns k), B =
+    // [h_0 .. h_7] (rows k, column n = block blk0 + n of the run)
+    for (int mt = 0; mt < KD / 16; ++mt) {
+      double d[4] = {0.0, 0.0, 0.0, 0.0};
+      for (int kd = 0; kd < (K + 7) / 8; ++kd) {
+        double am[4], bh[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = 16 * mt + g + 8 * (i & 1), k = 8 * kd + q + 4 * (i >> 1);
+          am[i] = (t < K && k < K) ? __ldg(warm + (size_t)t * K + k) : 0.0;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int k = 8 * kd + q + 4 * i, i0 = g * HOP - K + k;  // raw index - KE
+          bh[i] = (k < K && blk0 + g < blk1 && (long)blk0 * HOP + i0 >= 0)
+                      ? fma(a, int_to_double(raw[KE + i0]), be) : 0.0;
+        }
+        mma_f64(d, am, bh);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = 16 * mt + g + 8 * (i >> 1), n = 2 * q + (i & 1);
+        drow[n * KD + t] = d[i];
+      }
+    }
+    // the run's history: the KE samples before its first block
+    int base = MRING / 2;  // ring index of the current block's sample 0
+    double* const ring1 = reinterpret_cast<double*>(ring);
+    for (int k = lane; k < KE; k += 32) {
+      const int e = base - KE + k;
+      ring1[2 * ring_slot(e >> 1) + (e & 1)] =
+          (long)blk0 * HOP - KE + k >= 0 ? fma(a, int_to_double(raw[k]), be) : 0.0;
+    }
+
+    const int4* const raw4 = reinterpret_cast<const int4*>(raw + KE);
+    for (int blk = blk0; blk < blk1; ++blk, base += HOP) {
+      const int4 cur = raw4[(blk - blk0) * (HOP / 8) + lane];
+      int s[8];
+      {
+        const int words[4] = {cur.x, cur.y, cur.z, cur.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          s[2 * p] = (int)((unsigned)words[p] << 16) >> 16;
+          s[2 * p + 1] = words[p] >> 16;
+        }
+      }
+      // the lane's float32 weights added in float64, in order
+      double ws = stab[min(max(s[0] + soff, 0), ns - 1)];
+      int cnt = s[0] != 0;
+#pragma unroll
+      for (int j = 1; j < 8; ++j) {
+        ws += (double)stab[min(max(s[j] + soff, 0), ns - 1)];
+        cnt += s[j] != 0;
+      }
+      __syncwarp();  // every lane is done reading the previous block's ring
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        ring[ring_slot((base >> 1) + 4 * lane + p)] =
+            make_double2(fma(a, int_to_double(s[2 * p]), be),
+                         fma(a, int_to_double(s[2 * p + 1]), be));
+      __syncwarp();
+
+      // z = A T: tile u holds segments 16u + g (a0, a2) and 16u + g + 8
+      // (a1, a3); their window offsets 8kk + 2q, 8kk + 2q + 1 are one pair
+      double z[2][4] = {{0.0, 0.0, 0.0, 0.0}, {0.0, 0.0, 0.0, 0.0}};
+      const int p0 = ((base - KE) >> 1) + 4 * g + q;
+      auto step = [&](int kk, double2 tb) {
+        const double bt[2] = {tb.x, tb.y};
+        const int s0 = ring_slot(p0 + 4 * kk);  // + 32 j: rows 8 j further
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const double2 lo = ring[(s0 + 64 * u) & (MRING / 2 - 1)];
+          const double2 hi = ring[(s0 + 64 * u + 32) & (MRING / 2 - 1)];
+          const double av[4] = {lo.x, hi.x, lo.y, hi.y};
+          mma_f64(z[u], av, bt);
+        }
+      };
+      if constexpr (NK > 0) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) step(kk, treg[kk]);
+      } else {
+        for (int kk = 0; kk < nk; ++kk) step(kk, tfrag[kk * 32 + lane]);
+      }
+
+      // this lane's columns: z[u][i] is output t = 8 (16u + g + 8 (i >> 1))
+      // + 2q + (i & 1), (-1)^t = (-1)^i
+      double v[8] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, ws, int_to_double(cnt)};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const double zv = z[u][i];
+          v[0] += zv;
+          v[1] += (i & 1) ? -zv : zv;
+          v[2] = fma(zv, zv, v[2]);
+        }
+      }
+      // the head, t < K <= 128: tile 0's outputs only, its rows g + 8 (t >=
+      // 64) only when K > 64
+      const double* dl = drow + (blk - blk0) * KD;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i == 2 && K <= 64) break;
+        const int t = 8 * (g + 8 * (i >> 1)) + 2 * q + (i & 1);
+        if (t < K) {
+          const double zv = z[0][i], dv = dl[t];
+          v[3] += dv;
+          v[4] = fma(2.0 * zv + dv, dv, v[4]);
+          v[5] += (i & 1) ? -dv : dv;
+        }
+      }
+      // reduce-scatter: offset 16 leaves columns 4h .. 4h+3 (h = bit 4 of
+      // the lane), 8 two of them, 4 one, column (lane >> 2) & 7
+      double r4[4], r2[2];
+      const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r4[i] = (h16 ? v[i + 4] : v[i]) + __shfl_xor_sync(FULL, h16 ? v[i] : v[i + 4], 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        r2[i] = (h8 ? r4[i + 2] : r4[i]) + __shfl_xor_sync(FULL, h8 ? r4[i] : r4[i + 2], 8);
+      double col = (h4 ? r2[1] : r2[0]) + __shfl_xor_sync(FULL, h4 ? r2[0] : r2[1], 4);
+      col += __shfl_xor_sync(FULL, col, 2);
+      col += __shfl_xor_sync(FULL, col, 1);
+      if (__any_sync(FULL, !isfinite(col))) col = __longlong_as_double(0x7ff8000000000000ll);
+      if (q == 0) out[((size_t)b * nbf + blk) * 8 + g] = col;
+    }
+    __syncwarp();  // every lane is done with raw before the next run refills it
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace
@@ -306,8 +540,8 @@ int bliss_stats_ablate(int variant, const void* x, int B, int L,
 }
 
 // A2: x [B, rows, 256] of dtype 0 int16, 1 int32, 2 float (NULL for mode
-// ZERO); out float [B, rows / nblk, 8, nblk]; rows a multiple of nblk,
-// nblk >= 8. PACKED takes int32 only.
+// ZERO), 16-byte aligned; out float [B, rows / nblk, 8, nblk]; rows a
+// multiple of nblk, nblk >= 8. PACKED takes int32 only.
 int bliss_probe(int mode, int dtype, const void* x, int B, int rows, int nblk,
                 void* out, void* stream) {
   if (B < 1 || B > 65535 || rows < 1 || nblk < 8 || rows % nblk)
@@ -321,24 +555,33 @@ int bliss_probe(int mode, int dtype, const void* x, int B, int rows, int nblk,
   return (int)cudaErrorInvalidValue;
 }
 
-// A3: x int16 [B, L], L a multiple of 256; alpha, beta float [B]; cheb
-// float [ncheb]; fir double [taps] and warm double [taps-1, taps-1] (one
-// band); out double [B, L/256, 8].
+// A3: x int16 [B, L], 16-byte aligned, L a multiple of 256; alpha, beta
+// float [B]; cheb float [ncheb]; fir double [taps] and warm double [taps-1,
+// taps-1] (one band); out double [B, L/256, 8].
 int bliss_matred_stats(const void* x, int B, int L, const void* alpha,
                        const void* beta, const void* cheb, int ncheb,
                        float halfwidth, const void* fir, const void* warm,
                        int taps, void* out, void* stream) {
-  if (B < 1 || B > 65535 || L < BLK || L % BLK || taps < 2 ||
-      taps - 1 > MAX_K || ncheb < 1 || ncheb > MAX_CHEB)
+  if (B < 1 || B > 65535 || L < HOP || L % HOP || taps < 2 ||
+      taps - 1 > MAX_K || ncheb < 1 || ncheb > MAX_CHEB ||
+      !(halfwidth > 0.f && 2 * (int)ceilf(halfwidth) <= MAX_WTAB))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(MatredSmem);
+  const int nbf = L / HOP, K = taps - 1;
+  const int KE = (K + 7) & ~7, nk = KE / 8 + 1, KD = (K + 15) & ~15;
+  const size_t smem = (size_t)nk * 32 * sizeof(double2) +
+                      (size_t)SWARPS * (MRING + RUN * KD + (KE + RUN * HOP) / 2) * sizeof(double);
+  auto kernel = nk == 2 ? matred_stats_kernel<2>
+                : nk == 3 ? matred_stats_kernel<3> : matred_stats_kernel<0>;
+  // the static weight table counts against the default 48 KB too, so opt in
+  // to the dynamic size every time
   cudaError_t rc = cudaFuncSetAttribute(
-      matred_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return (int)rc;
-  const int nbf = L / BLK;
-  const dim3 grid((nbf + BLOCKS_PER_CTA - 1) / BLOCKS_PER_CTA, B);
-  matred_stats_kernel<<<grid, BLK, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)x, L, nbf, (const float*)alpha, (const float*)beta,
+  const long long runs = (long long)B * ((nbf + RUN - 1) / RUN);
+  const int grid = persistent_grid(kernel, runs, smem, rc);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<grid, SWARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const int16_t*)x, B, L, nbf, (const float*)alpha, (const float*)beta,
       (const float*)cheb, ncheb, halfwidth, (const double*)fir,
       (const double*)warm, taps, (double*)out);
   return (int)cudaGetLastError();

@@ -19,8 +19,8 @@
 //
 // What bounds it: ~42 fp64 FLOP a sample (the 17-tap FIR, the sums, the
 // correction) on the fp64 CUDA cores, against 2 bytes read
-// (kernels/bounds.py stats_work, which also counts the Clenshaw weight's
-// ~70 fp32 FLOP a sample that the table below saves).
+// (kernels/bounds.py stats_work, which counts the amplitude weight as the
+// table below: its values once, then a lookup and an add a sample).
 //
 // The design: one warp a hop block, 8 consecutive samples a lane, and no
 // block barrier in the hop-block loop. stats_kernel, a persistent grid of

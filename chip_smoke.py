@@ -35,15 +35,19 @@ Phases, one line each, stopping at the first failure:
    counts the same beats as the main path and as itself with the plain
    versions (of the prepass, K2 and K3) in place of the kernels;
 6. ``distance_matrix`` of the 64 force vectors against NumPy;
-7. the ablation (``bliss_tpu_torch.ablate``): every variant of A1 (the
-   stats kernel's stages), A2 (the read-and-reduce probes) and A3 (the
-   matrix-product reductions) against its plain version on the edge batch,
-   at the TPU scripts' shape B=128, L=491520 and at B=64, L=2^23, where the
-   plain versions and, for the row sums, ``torch.sum`` of the same rows
-   are timed too; A3's numerics report against the shipped stats kernel;
+7. the ablation (``bliss_tpu_torch.ablate``): A2's and A3's registers and
+   spills from the build report; every variant of A1 (the stats kernel's
+   stages), A2 (the read-and-reduce probes) and A3 (the FIR and the
+   correction as fp64 tensor-core products) against its plain version on
+   the edge batch, at the TPU scripts' shape B=128, L=491520 and at B=64,
+   L=2^23, where the plain versions and, for the row sums, ``torch.sum`` of
+   the same rows are timed too; on the edge batch also every A2 mode on
+   every dtype with stripes that end ragged, and A3 at 2, 17 and 129 taps
+   under both fits (timed at B=64, L=2^23 too); A3's numerics report
+   against the shipped stats kernel;
    then the ablation's own path,
    ``bliss_tpu_torch.ablate.breakdown.run`` at both shapes, which times every
-   variant and must launch each of A1, A2 and A3;
+   variant and must launch each of A1, A2 and A3; the phase's seconds;
 8. the library pipeline (``bliss_tpu_torch.pipeline``): (a) its loop after
    decode, ``pipeline._scan``, fed 192 decoded songs of the main batch's
    lengths (the main batch, each song reversed, each rotated by a third) at
@@ -185,7 +189,7 @@ Phases, one line each, stopping at the first failure:
    mesh, equal to ``nearest_neighbors_all``;
 16. the C compat library and the differential fuzz (the rest of M11):
    ``libbliss.so`` and ``abi_check`` built with g++ and gcc from the
-   checkout; (a) the library loaded into this process with ``ctypes``,
+   checkout (a missing compiler or ``Python.h`` fails the phase); (a) the library loaded into this process with ``ctypes``,
    ``io.decoder.decode`` patched to hand back 8 of the main batch's songs
    by file name: under ``gpu`` each ``bl_analyze`` launches the prepass and
    K1 once and gives phase 4's rows (beats identical, the rest within
@@ -627,11 +631,15 @@ def ablation_errors(case, got, ref):
     }
 
 
-# the ablation's row-sum probes -> the rows they sum; torch.sum of those
-# rows is the one PyTorch call that computes the same sums
-LIBRARY_ROWS = {"S1b one_sum": "x", "S1b sums_stack": "x", "S2 touch i16": "x",
-                "S2 touch i32": "x32", "S2 touch f32": "xf", "S3 i16": "x",
-                "S3 packed_nounpack": "words"}
+# the ablation's row-sum probes -> the rows they sum (input, row width);
+# torch.sum of those rows is the one PyTorch call that computes the same
+# sums (for six_sums, the first of its six; a packed row of 256 words is
+# 512 int16 samples)
+LIBRARY_ROWS = {"S1b one_sum": ("x", 256), "S1b sums_stack": ("x", 256),
+                "S1b six_sums": ("x", 256), "S2 touch i16": ("x", 256),
+                "S2 touch i32": ("x32", 256), "S2 touch f32": ("xf", 256),
+                "S3 i16": ("x", 256), "S3 packed": ("x", 512),
+                "S3 packed_nounpack": ("words", 256)}
 
 
 def check_ablation(inp, label, timed=False):
@@ -655,13 +663,92 @@ def check_ablation(inp, label, timed=False):
         if timed:
             plain_ms = cuda_ms(case["plain"])
             if case["name"] in LIBRARY_ROWS:
-                rows = inp[LIBRARY_ROWS[case["name"]]].reshape(inp["B"], -1, 256)
+                key, width = LIBRARY_ROWS[case["name"]]
+                rows = inp[key].reshape(inp["B"], -1, width)
                 lib_ms = cuda_ms(lambda: torch.sum(rows, dim=-1, dtype=torch.float32))
         out[case["name"]] = (errs, plain_ms, lib_ms)
         detail = ", ".join(f"{k} max_abs={a:.3e} max_rel={r:.3e}" for k, (a, r) in errs.items())
         if timed:
             detail += f"; plain {plain_ms:.3f} ms" + ("" if lib_ms is None else f", torch.sum {lib_ms:.3f} ms")
         log(f"ablation vs plain {label} {case['name']}: {detail}")
+    return out
+
+
+def check_probe_modes(x, label) -> dict:
+    """Every A2 mode on every dtype it takes against its plain version, on
+    rows of the card-resident int16 ``x`` [B, L] (and their int32 and
+    float32 copies, and full-range int32 words, so that their float32 sums
+    round), with chunks of 16 and 40 rows: stripes of 32 rows that end
+    ragged. Gates as ``ablation_errors``': copies and sums of int16 values
+    identical, other sums within 1e-6 of each output's sum of |term| (+1).
+    Returns {case: (errors, None, None)}, as ``check_ablation``."""
+    from bliss_tpu_torch.ablate import probe
+
+    B, L = x.shape
+    rows = x.reshape(B, L // 256, 256)[:, :1000]
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    full = torch.randint(-2**31, 2**31 - 1, rows.shape, dtype=torch.int64, device=x.device,
+                         generator=gen).to(torch.int32)
+    inputs = {torch.int16: rows, torch.int32: full, torch.float32: rows.to(torch.float32)}
+    out = {}
+    for dtype, r in inputs.items():
+        for mode in probe.MODES:
+            if mode == "packed" and dtype != torch.int32:
+                continue
+            for nblk in (16, 40):
+                t = r[:, : r.shape[1] // nblk * nblk].contiguous()
+                got = probe.probe(t, nblk, mode)
+                torch.cuda.synchronize()
+                ref = probe.probe_reference(t, nblk, mode)
+                name = f"A2 {mode} {str(dtype)[6:]} nblk={nblk}"
+                exact = mode in ("zero", "slice", "convert") or (
+                    mode in ("sum1", "packed") and dtype != torch.int32)
+                scale = probe.probe_reference(t, nblk, mode, absolute=True).double() + 1.0
+                out[name] = ({"out": compare(name, got, ref, scale, 0.0 if exact else 1e-6)},
+                             None, None)
+    worst = max(r for e, _, _ in out.values() for _, r in e.values())
+    log(f"ablation (phase 7) {label}: every A2 mode x dtype ({len(out)} cases, rows "
+        f"[{B}, {rows.shape[1]}, 256], chunks of 16 and 40 rows) against the plain versions: "
+        f"max rel err {worst:.3e}")
+    return out
+
+
+def check_matred_taps(x, alpha, beta, label) -> dict:
+    """A3 at the shortest, the scripts' and the longest FIR (taps 2, 17,
+    129) under both Chebyshev fits, on card-resident ``x`` (a silent song's
+    columns NaN), against the plain version within ``ablation_errors``'
+    gates. Returns {case: (errors, None, None)}, as ``check_ablation``."""
+    from bliss_tpu_torch.ablate import matred
+
+    L = x.shape[1]
+    out = {}
+    for taps in (2, 17, 129):
+        for deg, hw in ((18, 200), (14, 128)):
+            got = matred.proto_call(x, alpha, beta, deg, hw, chunk=L, taps=taps)
+            torch.cuda.synchronize()
+            ref = matred.matred_reference(x, alpha, beta, deg, hw, chunk=L, taps=taps)
+            name = f"A3 taps={taps} cheb{deg}/{hw}"
+            out[name] = (ablation_errors({"name": name, "kernel": "A3"}, got, ref), None, None)
+    detail = "; ".join(f"{n} sums max_rel={e['stats'][1]:.3e}" for n, (e, _, _) in out.items())
+    log(f"ablation (phase 7) {label}: A3 at taps 2, 17, 129 against the plain version: {detail}")
+    return out
+
+
+def matred_taps_ms(inp, label) -> dict:
+    """A3's warm median of 5 at ``inp``'s shape under the shipped fit at 2,
+    17 and 129 taps (the FIR's share of its time), each beside its bound.
+    Returns {"taps=N": {"ms", "bound_ms"}}."""
+    from bliss_tpu_torch.ablate import matred
+    from bliss_tpu_torch.kernels import bounds
+
+    x, a, b, B, L = inp["x"], inp["alpha"], inp["beta"], inp["B"], inp["L"]
+    out = {}
+    for taps in (2, 17, 129):
+        ms = cuda_ms(lambda: matred.proto_call(x, a, b, chunk=inp["chunk"], taps=taps))
+        out[f"taps={taps}"] = {"ms": ms, "bound_ms": bounds.bound_ms(bounds.matred_work(B, L, taps=taps))[0]}
+    log(f"ablation (phase 7) A3 B={B} L={L} by FIR length, warm median of 5: "
+        + ", ".join(f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})" for k, v in out.items())
+        + f" {label}")
     return out
 
 
@@ -3845,27 +3932,25 @@ def fuzz_part(device, label) -> dict:
 
 def compat_phase(arrays, durations, out, device, label) -> dict:
     """Phase 16: the C compat library (a)-(c) and the fuzz (d). Where the
-    library cannot be built for want of ``Python.h`` or a compiler, (a)-(c)
-    print one line naming it and (d) still runs. Returns launches by part
-    and mode."""
+    library cannot be built for want of ``Python.h`` or a compiler, the
+    phase fails. Returns launches by part and mode."""
     import tempfile
 
     from bliss_tpu_torch import compat
 
     t0 = time.perf_counter()
     launches = {}
+    t_build = time.perf_counter()
     try:
-        t_build = time.perf_counter()
         compat.abi_check_path()
-        log(f"compat (phase 16) libbliss.so and abi_check built in "
-            f"{time.perf_counter() - t_build:.1f} s (g++ and gcc)")
     except compat.MissingBuildTool as e:
-        log(f"compat (phase 16) (a)-(c) left out: {e}")
-    else:
-        part = compat_inproc_part(arrays, durations, out, device, label)
-        launches["compat"] = part["launches"]
-        with tempfile.TemporaryDirectory() as tmp:
-            compat_process_part(arrays, durations, part["raw_sorts"], device, tmp, label)
+        raise AssertionError(f"phase 16: the C library cannot be built: {e}") from e
+    log(f"compat (phase 16) libbliss.so and abi_check built in "
+        f"{time.perf_counter() - t_build:.1f} s (g++ and gcc)")
+    part = compat_inproc_part(arrays, durations, out, device, label)
+    launches["compat"] = part["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        compat_process_part(arrays, durations, part["raw_sorts"], device, tmp, label)
     t1 = time.perf_counter()
     launches["fuzz"] = fuzz_part(device, label)
     log(f"compat (phase 16) took {time.perf_counter() - t0:.1f} s: (a)-(c) {t1 - t0:.1f}, "
@@ -3948,14 +4033,20 @@ def main() -> int:
         "fused_stats": bounds.stats_work(MAIN_B, MAIN_L),
         "stft_power": bounds.power_work(frames, MAIN_B),
     }
+    # K1's and K2's bounds with the FIR's FMAs on the fp64 tensor cores, as
+    # A3 runs them
+    tc_bounds = {"fused_all": bounds.bound_ms(bounds.fused_all_work(MAIN_B, MAIN_L, frames, fir_pipe="fp64_tc")),
+                 "fused_stats": bounds.bound_ms(bounds.stats_work(MAIN_B, MAIN_L, fir_pipe="fp64_tc"))}
     k3_calls = k3_library_ms(batch)
     library = {"prepass": None, "fused_all": None, "fused_stats": None,
                "stft_power": k3_calls["torch.matmul"]}
     for name, (_, ms, plain_ms) in kernels.items():
         bound, by = bounds.bound_ms(works[name])
         calls = k3_calls if name == "stft_power" else {}
+        tc = (f", with the FIR on the fp64 tensor cores {tc_bounds[name][0]:.3f} ms "
+              f"({tc_bounds[name][1]})") if name in tc_bounds else ""
         log(f"{name} B=64 L=2^23 warm median of 5: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), library call "
+            f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}){tc}, library call "
             f"{', '.join(f'{c} {t:.3f} ms' for c, t in calls.items()) or 'none'} {label}")
 
     # 4. the main path, through the user's entry point; every count is set
@@ -4089,12 +4180,22 @@ def main() -> int:
     log(f"distance_matrix 64x64 vs numpy float64: max abs err {dm_err:.2e}")
 
     # 7. the ablation: each variant against its plain version, then its path
-    checked = [check_ablation(batch_inputs(edge), "(a) B=5 L=2^18 edge cases")]
+    t7 = time.perf_counter()
+    regs = [e for e in ptxas_report(_build.BUILD_INFO.get("ablate", (0.0, ""))[1]).split(" | ")
+            if "probe_kernel" in e or "matred_stats_kernel" in e]
+    log(f"ablation (phase 7) A2 and A3 registers and spills (ptxas): "
+        f"{' | '.join(regs) if regs else 'no build report: the library was already built'}")
+    einp = batch_inputs(edge)
+    checked = [check_ablation(einp, "(a) B=5 L=2^18 edge cases"),
+               check_probe_modes(einp["x"], "(a) B=5 L=2^18 edge cases"),
+               check_matred_taps(einp["x"], einp["alpha"], einp["beta"], "(a) B=5 L=2^18 edge cases")]
+    del einp
     sinp = breakdown.inputs("script")
     checked.append(check_ablation(sinp, "(b) B=128 L=491520"))
     inp = breakdown.inputs("main")
     main_checked = check_ablation(inp, "(c) B=64 L=2^23", timed=True)
     checked.append(main_checked)
+    a3_taps = matred_taps_ms(inp, label)
     for shape, x in (("script", sinp), ("main", inp)):
         for deg, hw in ((18, 200), (14, 128)):
             rep = matred.numerics_report(x["x"], x["alpha"], x["beta"], deg, hw)
@@ -4111,6 +4212,7 @@ def main() -> int:
         )
     log(f"ablation path: launches A1 {ab_fused.LAUNCHES}, A2 {probe.LAUNCHES}, "
         f"A3 {matred.LAUNCHES} {label}")
+    log(f"ablation (phase 7) took {time.perf_counter() - t7:.1f} s")
 
     # 8. the library pipeline: (a) its loop after decode at full width, on
     # the main batch's songs and two variants of each (reversed, rotated by
@@ -4207,6 +4309,7 @@ def main() -> int:
             "errors": {k: {"max_abs": a, "max_rel": r} for k, (a, r) in errs.items()},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             **({"library_calls_ms": k3_calls} if name == "stft_power" else {}),
+            **({"bound_fir_tc_ms": tc_bounds[name][0]} if name in tc_bounds else {}),
         })
     ab_replaces = {
         "stats_ablate": "scripts/ablate_fused.py:36",
@@ -4223,7 +4326,8 @@ def main() -> int:
         rows = [r for r in ab_rows if r["kernel"] == kernel_id]
         row = next(r for r in rows if r["shape"] == "main" and r["name"] == case_name)
         errs = [e for c in checked for n, (errs_n, _, _) in c.items()
-                if n in {r["name"] for r in rows} for e in errs_n.values()]
+                if n in {r["name"] for r in rows} or n.startswith(kernel_id + " ")
+                for e in errs_n.values()]
         _, plain_ms, lib_ms = main_checked[case_name]
         library[name] = lib_ms
         entries.append({
@@ -4239,7 +4343,8 @@ def main() -> int:
                         "library_ms": main_checked[r["name"]][2]}
                        if r["shape"] == "main" else {}),
                 } for r in rows
-            },
+            } | ({f"main S4 matred {k}": v for k, v in a3_taps.items()}
+                 if name == "matred_stats" else {}),
         })
     for e in entries:
         e.update(route="cuda", launches=launches[e["name"]], library_ms=library[e["name"]])
@@ -4253,7 +4358,7 @@ def main() -> int:
             e["matrix_launches"] = matrix_launches[e["name"]]
             e["matrix_rows"] = [row for row, c in matrix_rows.items() if c[e["name"]]]
             e["mesh_launches"] = {m: c[e["name"]] for m, c in mesh_launches.items()}
-            e["compat_launches"] = {m: c[e["name"]] for m, c in compat_launches.get("compat", {}).items()}
+            e["compat_launches"] = {m: c[e["name"]] for m, c in compat_launches["compat"].items()}
             e["fuzz_launches"] = {m: c[e["name"]] for m, c in compat_launches["fuzz"].items()}
             e["tools_launches"] = {part: c[e["name"]] for part, c in tools_launches.items()}
             if e["name"] in mesh_shard:

@@ -15,10 +15,14 @@ FRAMES = 450_000
 def test_stats_work_counts_each_sample_once_per_piece():
     """Per sample: normalization 2, FIR 34, z^2 and three sums 4; each of
     the 16 head samples of a 256-sample block adds the correction (32),
-    y = z + delta and y's square and sums (5)."""
+    y = z + delta and y's square and sums (5). The amplitude weight: its
+    series once for each of the 400 values of |s + 1| around 1000 that are
+    not 0 or 1 (66 FLOP each, once a call), then an add a sample."""
     w = bounds.stats_work(1, 256)
     assert w["fp64"] == pytest.approx(256 * (2 + 34 + 4) + 16 * (32 + 5))
-    assert w["fp32"] == 256 * (12 + 3 * 18 + 1)
+    assert w["fp32"] == 256 + 400 * (12 + 3 * 18)
+    assert bounds.stats_work(64, 256)["fp32"] == 64 * 256 + 400 * (12 + 3 * 18)
+    assert bounds.stats_work(1, 256, ncheb=15, halfwidth=127.5)["fp32"] == 256 + 256 * (12 + 3 * 14)
     assert w["bytes"] == 2 * 256 + 8 + 8 * 9
     bare = bounds.stats_work(1, 256, cheb=False, conv=False, warm=False)
     assert bare["fp64"] == 256 * (2 + 4) and bare["fp32"] == 256
@@ -44,9 +48,44 @@ def test_fused_all_reads_the_pcm_once(frames):
 
 
 def test_matred_work_is_the_stats_function_in_its_layout():
+    """A3's work is K2's, with the FIR's FMAs on the fp64 tensor cores and
+    the float32 weights added in float64."""
     a3, k2 = bounds.matred_work(B, L), bounds.stats_work(B, L)
-    assert a3["fp64"] == k2["fp64"] and a3["fp32"] == k2["fp32"]
+    assert a3["fp64"] + a3["fp64_tc"] == k2["fp64"] + B * L
+    assert a3["fp32"] == k2["fp32"] - B * L == bounds.weight_table_flops(19, 200)
+    assert a3["fp64_tc"] == B * L * 34
     assert a3["bytes"] == 2 * B * L + 64 * B * (L // 256)
+
+
+def test_stats_work_counts_the_fir_on_the_tensor_cores_when_asked():
+    """``fir_pipe="fp64_tc"``: the 17-tap FIR's 34 FLOP a sample on the fp64
+    tensor cores (67 TFLOP/s), the normalization, sums and correction on
+    the CUDA cores; the default moves nothing."""
+    assert bounds.PEAK["fp64_tc"] == 67e12
+    tc, cc = bounds.stats_work(1, 256, fir_pipe="fp64_tc"), bounds.stats_work(1, 256)
+    assert tc["fp64_tc"] == 256 * 34
+    assert tc["fp64"] == pytest.approx(256 * (2 + 4) + 16 * (32 + 5))
+    assert tc["fp32"] == cc["fp32"] and tc["bytes"] == cc["bytes"]
+    assert "fp64_tc" not in cc
+    assert "fp64_tc" not in bounds.stats_work(1, 256, conv=False, fir_pipe="fp64_tc")
+    with pytest.raises(ValueError):
+        bounds.stats_work(1, 256, fir_bytes=4, fir_pipe="fp64_tc")
+    # at the main batch the FIR leaves the fp64 pipe: the bound drops from
+    # the fp64 CUDA cores (0.668 ms) to the bytes (0.371 ms), above the
+    # FIR's 0.272 on the tensor cores and the rest's 0.131 on the CUDA cores
+    k2, k2_tc = bounds.stats_work(B, L), bounds.stats_work(B, L, fir_pipe="fp64_tc")
+    assert bounds.bound_ms(k2) == (pytest.approx(0.66813, abs=1e-5), "operations")
+    assert bounds.bound_ms(k2_tc) == (pytest.approx(0.37060, abs=1e-5), "bytes")
+    assert k2_tc["fp64_tc"] / 67e12 * 1e3 == pytest.approx(0.27244, abs=1e-5)
+    assert k2_tc["fp64"] / 34e12 * 1e3 == pytest.approx(0.13126, abs=1e-5)
+    k1_tc = bounds.fused_all_work(B, L, FRAMES, fir_pipe="fp64_tc")
+    assert k1_tc["fp64_tc"] == k2_tc["fp64_tc"] and k1_tc["fp64"] == k2_tc["fp64"]
+    assert k1_tc["bytes"] == bounds.fused_all_work(B, L, FRAMES)["bytes"]
+    assert bounds.bound_ms(k1_tc)[1] == "bytes"
+    # A3 under either fit: its bytes (8 float64 columns a block), 0.361 ms
+    for ncheb, hw in ((19, 200), (15, 128)):
+        a3 = bounds.matred_work(B, L, ncheb=ncheb, halfwidth=hw)
+        assert bounds.bound_ms(a3) == (pytest.approx(0.36058, abs=1e-5), "bytes")
 
 
 def test_prepass_bound_is_one_read():

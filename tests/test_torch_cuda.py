@@ -321,6 +321,37 @@ def test_probe_kernel_matches_plain(cuda, mode, dtype):
         assert torch.equal(got, ref)
 
 
+ALL_PROBES = [(m, d) for d in (torch.int16, torch.int32, torch.float32) for m in probe.MODES
+              if m != "packed" or d == torch.int32]
+
+
+@pytest.mark.parametrize("R,nblk", [(80, 40), (48, 16), (600, 300)], ids=["R80_nblk40", "R48_nblk16", "R600_nblk300"])
+@pytest.mark.parametrize("mode,dtype", ALL_PROBES, ids=[f"{m}-{str(d)[6:]}" for m, d in ALL_PROBES])
+def test_every_probe_mode_and_dtype_matches_plain(cuda, mode, dtype, R, nblk):
+    """Every mode the kernel takes on every dtype, with stripes of 32 rows
+    that end ragged (nblk not a multiple of 32): copies identical, sums of
+    int16 values identical, other sums within 1e-6 of the row's sum of
+    |term| (+1); full-range int32 words, so their float32 sums round."""
+    rng = np.random.RandomState(9)
+    if dtype == torch.int32:
+        x = rng.randint(-2**31, 2**31 - 1, size=(3, R, 256), dtype=np.int64)
+    else:
+        x = rng.randint(-3000, 3000, size=(3, R, 256))
+        x[1, : R // 2] = 0
+    x = torch.from_numpy(x).to(dtype).to(cuda)
+    before = _ablate_counters()
+    got = probe.probe(x, nblk, mode)
+    torch.cuda.synchronize()
+    assert _ablate_counters() == (before[0], before[1] + 1, before[2])
+    ref = probe.probe_reference(x, nblk, mode)
+    assert got.shape == ref.shape == (3, R // nblk, 8, nblk)
+    if mode in ("zero", "slice", "convert") or (mode in ("sum1", "packed") and dtype != torch.int32):
+        assert torch.equal(got, ref)
+    else:
+        scale = probe.probe_reference(x, nblk, mode, absolute=True).double() + 1.0
+        assert _max_err(got, ref, scale) < 1e-6
+
+
 def test_script_wrappers_launch_the_probe(cuda):
     x, _, _ = _ablate_inputs(cuda)
     before = probe.LAUNCHES
@@ -359,6 +390,33 @@ def test_matred_kernel_matches_plain(cuda, fit):
     assert report["rownz_agree"]
     if fit == (18, 200):
         assert report["energy_max_rel"] < 1e-9
+
+
+@pytest.mark.parametrize("fit", [(18, 200), (14, 128)], ids=["cheb18_200", "cheb14_128"])
+@pytest.mark.parametrize("taps", [2, 17, 129])
+def test_matred_kernel_matches_plain_at_every_fir_length(cuda, taps, fit):
+    """The shortest, the scripts' and the longest FIR A3 takes, with a
+    ragged last run of 8 hop blocks (L = 35 * 256 + a second chunk) and a
+    silent song: columns of z and delta within 1e-9 of |ref| plus the
+    block's sum of z^2 (+1), wsum within 1e-5 of |ref| + 1, counts equal,
+    NaN at the same places."""
+    x, a, b = _ablate_inputs(cuda)
+    L = 35 * 256
+    x = x[:, :L].contiguous()
+    x[1] = 0
+    alpha, beta, _ = fused_stats.normalization(x, torch.full((3,), L, device=cuda))
+    before = _ablate_counters()
+    got = matred.proto_call(x, alpha, beta, *fit, chunk=L, taps=taps)
+    torch.cuda.synchronize()
+    assert _ablate_counters() == (before[0], before[1], before[2] + 1)
+    ref = matred.matred_reference(x, alpha, beta, *fit, chunk=L, taps=taps)
+    assert got.shape == ref.shape == (3, 1, 35, 8)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.isnan(ref[1]).all()
+    ok = ~torch.isnan(ref[..., 0])
+    g, r = got[ok], ref[ok]
+    assert torch.equal(g[:, 7], r[:, 7])
+    assert _max_err(g[:, 6], r[:, 6], r[:, 6].abs() + 1.0) < 1e-5
+    assert _max_err(g[:, :6], r[:, :6], r[:, :6].abs() + r[:, 2:3] + 1.0) < 1e-9
 
 
 def _library(n=20_000):
