@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from bliss_tpu_torch.features.types import resolve_device
+from bliss_tpu_torch.utils.profiling import trace_annotation
 
 
 def as_device_tensor(x, device=None, dtype=None) -> torch.Tensor:
@@ -93,18 +94,28 @@ def _block_topk(q, feats, row0: int, k: int):
     d^2 = |q|^2 + |f|^2 - 2 q.f clamped at 0 and rounded to float32, then
     the k smallest of (d^2, index) as int64 keys, so that equal d^2 come out
     in index order (``jax.lax.top_k``'s order). Returns (distances [Q, k]
-    float32, indices [Q, k] int32), still on the device."""
-    d2 = q @ feats.T
-    d2.mul_(-2.0).add_(torch.sum(q * q, dim=-1)[:, None]).add_(torch.sum(feats * feats, dim=-1))
-    d2 = d2.clamp_min_(0.0).to(torch.float32)
-    d2.diagonal(row0).fill_(float("inf"))  # (i, row0 + i): each query's own row
-    # a non-negative float32's bits order as its value does
-    key = d2.view(torch.int32).to(torch.int64)
-    del d2
-    key.bitwise_left_shift_(32).bitwise_or_(torch.arange(feats.shape[0], device=q.device))
-    top = torch.topk(key, k, dim=1, largest=False).values
-    d2k = top.bitwise_right_shift(32).to(torch.int32).view(torch.float32)
-    return torch.sqrt(d2k), top.bitwise_and(0xFFFFFFFF).to(torch.int32)
+    float32, indices [Q, k] int32), still on the device.
+
+    Its stages are the spans ``knn.gram`` (q.f), ``knn.d2`` (the norms,
+    the assembly, the clamp, the rounding and the diagonal; it sums |f|^2
+    over all N rows again in every block, a known repeat), ``knn.keys``,
+    ``knn.topk`` and ``knn.unpack``."""
+    with trace_annotation("knn.gram"):
+        d2 = q @ feats.T
+    with trace_annotation("knn.d2"):
+        d2.mul_(-2.0).add_(torch.sum(q * q, dim=-1)[:, None]).add_(torch.sum(feats * feats, dim=-1))
+        d2 = d2.clamp_min_(0.0).to(torch.float32)
+        d2.diagonal(row0).fill_(float("inf"))  # (i, row0 + i): each query's own row
+    with trace_annotation("knn.keys"):
+        # a non-negative float32's bits order as its value does
+        key = d2.view(torch.int32).to(torch.int64)
+        del d2
+        key.bitwise_left_shift_(32).bitwise_or_(torch.arange(feats.shape[0], device=q.device))
+    with trace_annotation("knn.topk"):
+        top = torch.topk(key, k, dim=1, largest=False).values
+    with trace_annotation("knn.unpack"):
+        d2k = top.bitwise_right_shift(32).to(torch.int32).view(torch.float32)
+        return torch.sqrt(d2k), top.bitwise_and(0xFFFFFFFF).to(torch.int32)
 
 
 def nearest_neighbors_all(features, k: int, block: int = 4096, *, device=None):
@@ -114,15 +125,19 @@ def nearest_neighbors_all(features, k: int, block: int = 4096, *, device=None):
     ``k`` is clamped to N - 1; N == 0 or k <= 0 gives empty [N, 0] results.
     Query blocks of ``block`` rows keep peak memory O(block * N) (~5 GB a
     block at N = 100k); nothing inside a block reads the device, and the
-    blocks' results are concatenated on it."""
+    blocks' results are concatenated on it. The rows' widening and the
+    concatenation are the spans ``knn.widen`` and ``knn.concat``;
+    ``_block_topk`` opens each block's."""
     feats = as_device_tensor(features, device, torch.float32)
     n, k = feats.shape[0], min(k, max(feats.shape[0] - 1, 0))
     if n == 0 or k <= 0:
         return (torch.zeros((n, 0), dtype=torch.float32, device=feats.device),
                 torch.zeros((n, 0), dtype=torch.int32, device=feats.device))
-    f64 = feats.to(torch.float64)
+    with trace_annotation("knn.widen"):
+        f64 = feats.to(torch.float64)
     parts = [_block_topk(f64[row0 : row0 + block], f64, row0, k) for row0 in range(0, n, block)]
-    return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
+    with trace_annotation("knn.concat"):
+        return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def playlist_order(features, seed_index: int, *, device=None) -> torch.Tensor:

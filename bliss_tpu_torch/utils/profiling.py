@@ -49,15 +49,25 @@ class StageTimer:
         }
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+
+
 def trace_annotation(name: str):
-    """Annotate a region in ``torch.profiler`` traces (a
-    ``record_function`` range; costs next to nothing with no profiler
-    running)."""
+    """The program's span: a ``record_function`` range named ``name`` in a
+    ``torch.profiler`` trace, to be used as a context manager.
+
+    With no profiler running it enters nothing: one check of
+    ``torch.autograd._profiler_enabled()`` (~0.3 us), where entering and
+    leaving a ``record_function`` range costs 13-15 us on the host even
+    untraced (torch 2.13). A range's device time is read by correlation
+    (each kernel, copy or set carries the id of the runtime call that
+    launched it, and that call lies inside the range), not by overlapping
+    times: the host enqueues work ahead of the device."""
     import torch
 
-    with torch.profiler.record_function(name):
-        yield
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

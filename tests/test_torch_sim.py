@@ -128,6 +128,46 @@ def test_nearest_neighbors_all_degenerate_sizes_match_jax(n, k):
     np.testing.assert_allclose(pd.numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)
 
 
+KNN_BLOCK_SPANS = ("knn.gram", "knn.d2", "knn.keys", "knn.topk", "knn.unpack")
+
+
+def _profiled_knn(f, k, block):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = sim.nearest_neighbors_all(f, k, block=block, device="cpu")
+    counts = {}
+    for e in prof.events():
+        if e.name.startswith("knn."):
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return out, counts
+
+
+@pytest.mark.parametrize("n,block", [(100, 16), (100, 4096), (37, 10)])
+def test_nearest_neighbors_all_opens_its_stage_spans(n, block):
+    """Under a profiler a call opens ``knn.widen`` and ``knn.concat`` once
+    and each block stage's span once a query block."""
+    _, counts = _profiled_knn(_library(n, 4), 3, block)
+    blocks = -(-n // block)
+    assert counts == {"knn.widen": 1, "knn.concat": 1, **{s: blocks for s in KNN_BLOCK_SPANS}}
+
+
+def test_nearest_neighbors_all_is_bit_equal_profiled():
+    f = _library(100, 49)
+    (pd, pi), _ = _profiled_knn(f, 5, 16)
+    d, i = sim.nearest_neighbors_all(f, 5, block=16, device="cpu")
+    assert torch.equal(pd, d) and torch.equal(pi, i)
+
+
+def test_unprofiled_spans_enter_no_record_function(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    d, i = sim.nearest_neighbors_all(_library(50, 4), 3, block=16, device="cpu")
+    assert d.shape == i.shape == (50, 3)
+
+
 def test_block_topk_breaks_ties_by_index():
     """A query block whose d^2 ties with many columns exactly (dyadic
     vectors: every product exact) takes the lowest indices first, as
