@@ -7,8 +7,9 @@ and the compiler flags, so an edited source rebuilds. Nothing is built when
 a module is imported, and a missing ``nvcc`` or a failed build raises.
 
 ``library(name)`` binds the entry points of ``csrc/<name>.cu``:
-``fused_all`` (K1, K2, K3 and the prepass) and ``ablate`` (the measurement
-kernels A1, A2 and A3 of ``bliss_tpu_torch.ablate``). ``launch`` calls one entry point
+``fused_all`` (K1, K2, K3 and the prepass), ``ablate`` (the measurement
+kernels A1, A2 and A3 of ``bliss_tpu_torch.ablate``) and ``knn`` (the
+whole-library k nearest neighbours of ``kernels/knn.py``). ``launch`` calls one entry point
 on the tensor's current stream and raises if the launch failed;
 ``count_launch`` counts a wrapper's launches.
 ``build(names)`` compiles several sources at once, one ``nvcc`` each.
@@ -33,6 +34,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags of one library besides NVCC_FLAGS: knn.cu's 16 instantiations of
+# knn_kernel are optimised in parallel threads (5.0-5.8 s of nvcc on an
+# 8-core host against 7.0-8.5 s in one thread; the same SASS, function for
+# function)
+EXTRA_FLAGS = {"knn": ("--split-compile=0",)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -59,7 +65,7 @@ def nvcc_path() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(sorted(EXTRA_FLAGS.items())).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -83,7 +89,7 @@ def build(names) -> None:
         nvcc, t0, procs = nvcc_path(), time.perf_counter(), {}
         for name in todo:
             tmp = _path(name).with_name(f"{_path(name).name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         failed = []
@@ -128,6 +134,10 @@ _SIGNATURES = {
         "bliss_stats_ablate": [_I] + _STATS + [_VP],
         "bliss_probe": [_I, _I, _VP, _I, _I, _I, _VP, _VP],
         "bliss_matred_stats": [_VP, _I, _I, _VP, _VP, _VP, _I, _F, _VP, _VP, _I, _VP, _VP],
+    },
+    "knn": {
+        "bliss_knn_prep": [_VP, _I, _I, _I, _VP, _VP, _VP],
+        "bliss_knn_search": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP],
     },
 }
 _bound: dict[str, ctypes.CDLL] = {}

@@ -161,3 +161,12 @@ def matred_work(
     work["fp32"] -= B * L
     work["fp64"] += B * L
     return work
+
+
+def knn_work(n: int, dim: int, k: int) -> dict:
+    """The k-NN kernel (``csrc/knn.cu``) over all n rows of [n, dim] float32
+    features: every pair's float64 product, 2 n^2 dim operations at the
+    fp64 tensor cores' peak (the symmetric half is the kernel's algorithm,
+    not its function); reads the rows once, writes [n, k] float32
+    distances and int32 indices."""
+    return {"bytes": 4 * n * dim + 8 * n * k, "fp64_tc": 2 * n * n * dim}

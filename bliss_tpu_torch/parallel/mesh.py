@@ -423,30 +423,26 @@ def _xla_shards(group, parts, cfg, sum_s, sum_s2, start, end, fwd, bwd):
 def sharded_distance_topk(features, mesh: Mesh, k: int, block: int = 4096):
     """Every song's k nearest others, the rows of its [N, D] force vectors
     split over the mesh's devices (flattened) in whole query blocks of
-    ``block`` rows: each device takes its blocks through
-    ``sim/distance._block_topk`` (the float64 Gram matrix, equal distances
-    in index order, as ``jax.lax.top_k``), so that no device holds more
-    than a [block, N] piece of the distance matrix and every block is the
-    one ``nearest_neighbors_all(..., block=block)`` computes. Returns ([N,
-    k] distances float32, [N, k] indices int32) on the CPU, equal to
+    ``block`` rows: each device takes its rows through
+    ``sim/distance.topk_rows`` (the k-NN kernel on a card; on the CPU the
+    float64 Gram matrix a block, equal distances in index order, as
+    ``jax.lax.top_k``), so that every row's answer is the one
+    ``nearest_neighbors_all(..., block=block)`` computes. Returns ([N, k]
+    distances float32, [N, k] indices int32) on the CPU, equal to
     ``nearest_neighbors_all``'s; ``k`` is clamped to N - 1."""
-    from bliss_tpu_torch.sim.distance import _block_topk
+    from bliss_tpu_torch.sim.distance import topk_rows
 
     if not isinstance(features, torch.Tensor):
         features = torch.from_numpy(np.asarray(features))
-    feats = features.to(torch.float32).cpu().to(torch.float64)
+    feats = features.to(torch.float32).cpu()
     n = feats.shape[0]
     k = min(k, max(n - 1, 0))
     rows = -(-n // mesh.size)
     rows = -(-rows // block) * block  # whole blocks a device
     dists, idxs = {}, {}
     for i, dev in mesh.cells():
-        f = feats.to(dev)
         r0, r1 = min(i * rows, n), min((i + 1) * rows, n)
-        parts = [_block_topk(f[b0 : min(b0 + block, r1)], f, b0, k) for b0 in range(r0, r1, block)]
-        d = torch.cat([p[0] for p in parts]) if parts else torch.zeros(0, k, device=dev)
-        idx = (torch.cat([p[1] for p in parts]) if parts
-               else torch.zeros(0, k, dtype=torch.int32, device=dev))
+        d, idx = topk_rows(feats.to(dev), r0, r1, k, block)
         # equal blocks for the gather: a short device's block is padded
         dists[i] = F.pad(d, (0, 0, 0, rows - (r1 - r0)))
         idxs[i] = F.pad(idx, (0, 0, 0, rows - (r1 - r0)))

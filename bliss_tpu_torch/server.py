@@ -605,8 +605,8 @@ class AnalysisServer:
 
     def _neighbors_op(self, req: dict) -> dict:
         """Whole-library top-k from the warm store (see cli 'store
-        neighbors'): blocked float64 distance products and top-k on the
-        device, no re-analysis. ``similarity_rows`` snapshots under the
+        neighbors'): ``nearest_neighbors_all`` on the device (the k-NN
+        kernel on a card), no re-analysis. ``similarity_rows`` snapshots under the
         store lock (safe against a concurrent scan's puts) and dedups
         multi-config entries per file."""
         from bliss_tpu_torch.sim import nearest_neighbors_all

@@ -12,7 +12,10 @@ Gram matrix in float64 and round d^2 to float32: in float32 it carries an
 absolute error of about (D + 4) 2^-23 (|q|^2 + |f|^2), which puts two
 identical force vectors (|v|^2 ~ 500) up to 0.03 apart at D = 49. They take
 numpy arrays or tensors and run on ``device``: by default a tensor's own
-device, and the GPU for anything else (RuntimeError without one).
+device, and the GPU for anything else (RuntimeError without one). On the
+GPU ``nearest_neighbors_all`` runs the hand-written k-NN kernel
+(``kernels/knn.py``, ``csrc/knn.cu``); ``_block_topk`` is its plain
+version, the CPU's route.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from bliss_tpu_torch.features.types import resolve_device
+from bliss_tpu_torch.kernels import knn
 from bliss_tpu_torch.utils.profiling import trace_annotation
 
 
@@ -118,26 +122,44 @@ def _block_topk(q, feats, row0: int, k: int):
         return torch.sqrt(d2k), top.bitwise_and(0xFFFFFFFF).to(torch.int32)
 
 
+def topk_rows(feats: torch.Tensor, row0: int, row1: int, k: int, block: int = 4096):
+    """Top-k neighbours of rows ``row0:row1`` of float32 ``feats`` [N, D]
+    within all N rows, each row's own column excluded: (distances [row1 -
+    row0, k] float32, indices int32), on ``feats``' device; 1 <= k <= N - 1.
+
+    Where ``kernels.knn.takes`` it (a CUDA tensor, k <= ``knn.K_MAX``, D <=
+    ``knn.D_MAX``), one launch of the hand-written kernel covers every row,
+    whatever ``block``. Otherwise, on the CPU and past those bounds, the
+    plain path: the rows widened to float64 (span ``knn.widen``), then
+    ``_block_topk`` a block of ``block`` queries at a time (peak memory
+    O(block * N), ~5 GB a block at N = 100k), the blocks' results
+    concatenated on the device (``knn.concat``). Either way a row's answer
+    does not depend on which rows share its call."""
+    if knn.takes(feats, k):
+        return knn.knn_topk(feats, row0, row1, k)
+    with trace_annotation("knn.widen"):
+        f64 = feats.to(torch.float64)
+    parts = [_block_topk(f64[b0 : min(b0 + block, row1)], f64, b0, k) for b0 in range(row0, row1, block)]
+    if not parts:
+        return (torch.zeros((0, k), dtype=torch.float32, device=feats.device),
+                torch.zeros((0, k), dtype=torch.int32, device=feats.device))
+    with trace_annotation("knn.concat"):
+        return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
+
+
 def nearest_neighbors_all(features, k: int, block: int = 4096, *, device=None):
     """Every song's k nearest others: [N, D] -> (dists [N, k] float32,
-    idx [N, k] int32), on the device.
+    idx [N, k] int32), on the device, through ``topk_rows``.
 
     ``k`` is clamped to N - 1; N == 0 or k <= 0 gives empty [N, 0] results.
-    Query blocks of ``block`` rows keep peak memory O(block * N) (~5 GB a
-    block at N = 100k); nothing inside a block reads the device, and the
-    blocks' results are concatenated on it. The rows' widening and the
-    concatenation are the spans ``knn.widen`` and ``knn.concat``;
-    ``_block_topk`` opens each block's."""
+    ``block`` bounds the plain path's query blocks (the CPU's, and a CUDA
+    tensor's past the kernel's bounds); nothing reads the device."""
     feats = as_device_tensor(features, device, torch.float32)
     n, k = feats.shape[0], min(k, max(feats.shape[0] - 1, 0))
     if n == 0 or k <= 0:
         return (torch.zeros((n, 0), dtype=torch.float32, device=feats.device),
                 torch.zeros((n, 0), dtype=torch.int32, device=feats.device))
-    with trace_annotation("knn.widen"):
-        f64 = feats.to(torch.float64)
-    parts = [_block_topk(f64[row0 : row0 + block], f64, row0, k) for row0 in range(0, n, block)]
-    with trace_annotation("knn.concat"):
-        return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
+    return topk_rows(feats, 0, n, k, block)
 
 
 def playlist_order(features, seed_index: int, *, device=None) -> torch.Tensor:

@@ -3,8 +3,9 @@ port's counterpart of ``scripts/bench_similarity.py``, with its library,
 timing, spot check and JSON line).
 
 The `store neighbors` / `store dupes` / playlist workloads reduce to an
-all-pairs blocked distance + top-k (``sim.distance.nearest_neighbors_all``:
-a float64 [block, N] Gram block + top-k per block, on the device). This
+all-pairs distance + top-k (``sim.distance.nearest_neighbors_all``: on a
+card one launch of the k-NN kernel, float64 products and a running top-k;
+on the CPU a float64 [block, N] Gram block + top-k per block). This
 measures that path end-to-end at library scale — the N x N compute a
 100k-song library pays on every `store dupes` — and prints ONE JSON line,
 after a line with the card's name and power limit on a GPU.

@@ -8,7 +8,8 @@ Phases, one line each, stopping at the first failure:
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: compiles ``bliss_tpu_torch/kernels/csrc/fused_all.cu`` (K1, K2,
    K3; it includes ``csrc/stats.cuh`` and ``csrc/power.cuh``) and
-   ``csrc/ablate.cu`` (the measurement kernels A1, A2, A3) for
+   ``csrc/ablate.cu`` (the measurement kernels A1, A2, A3) and
+   ``csrc/knn.cu`` (the whole-library k nearest neighbours) for
    sm_90a from the checkout, one ``nvcc`` each, started together, and
    prints each build's time and each kernel's ptxas registers and spills;
 3. kernel vs plain, each kernel's wrapper against its plain version on the
@@ -83,12 +84,16 @@ Phases, one line each, stopping at the first failure:
    of others), at D = 4 and D = 49: ``nearest_neighbors_all`` (k=5, block 4096) against a
    float64 NumPy brute force on 512 seeded rows and every planted pair (d^2
    within the float32 Gram bound, indices equal where the gaps allow, each
-   copy's twin first at <= 1e-2), ``nearest_neighbors``, ``playlist_order``
+   copy's twin first at <= 1e-2; the k-NN kernel launched once a call),
+   the k-NN kernel (``knn_topk``) against its plain version ``_block_topk``
+   on the same card rows (d^2 within a bound that the float32 Gram form
+   fails, indices equal where the gaps allow; both timed beside the
+   kernel's bound), ``nearest_neighbors``, ``playlist_order``
    (ties in index order), ``distance_matrix`` at 10k x 10k and ``kmeans``
    (k=32, 50 iterations: two runs identical, the CPU Lloyd from the card's
    k-means++ seeds within 1e-4), each timed with its peak device memory;
    (b) the CLI's ``store neighbors``, ``dupes``, ``export`` and ``stats`` on
-   a 100 000-entry store; (c) the CLI from 65 FLAC files (one streamed):
+   a 100 000-entry store (neighbors and dupes each through the k-NN kernel); (c) the CLI from 65 FLAC files (one streamed):
    ``scan`` through the prepass and K1 (rows as ``analyze_pcm``'s), then
    ``playlist`` and ``radio`` resumed from the store (``pipeline.iter_decode``
    patched, and logged, where libav's development files are missing);
@@ -145,7 +150,8 @@ Phases, one line each, stopping at the first failure:
    ``scan --extended`` streamed as chunked NDJSON progress, then
    ``shutdown`` over HTTP stopping both transports; (c) the ``neighbors``
    op over a 100 000-entry store (= ``nearest_neighbors_all`` over
-   ``similarity_rows``) beside the CLI's ``store neighbors``; (d) a health
+   ``similarity_rows``, the k-NN kernel once a request) beside the CLI's
+   ``store neighbors``; (d) a health
    probe every 0.5 s made to raise a CUDA error text: ``/metrics`` degraded,
    then recovered once; (e) ``doctor --device cuda``; (f) ``ScanJob``
    headless: its CSV rows are (a)'s force vectors;
@@ -186,7 +192,7 @@ Phases, one line each, stopping at the first failure:
    NCCL ``ProcessGroup`` on a file store, its (1, 1) rows the
    ``LocalGroup``'s bit for bit, the group destroyed after; (g)
    ``sharded_distance_topk`` over phase 10's D = 4 library on a (4, 1)
-   mesh, equal to ``nearest_neighbors_all``;
+   mesh, equal to ``nearest_neighbors_all``, the k-NN kernel once a shard;
 16. the C compat library and the differential fuzz (the rest of M11):
    ``libbliss.so`` and ``abi_check`` built with g++ and gcc from the
    checkout (a missing compiler or ``Python.h`` fails the phase); (a) the library loaded into this process with ``ctypes``,
@@ -1255,6 +1261,84 @@ def check_neighbors(f, pairs, d, idx, queries) -> str:
             f"planted copy finds its twin first, largest twin distance {twin_d.max():.2e}")
 
 
+# launches of the k-NN kernel (kernels/knn.py) by the part that ran it, and
+# phase 10 (a)'s kernel-vs-plain record at each width; read into its
+# kernels line entry
+KNN_LAUNCHES: dict[str, int] = {}
+KNN_CHECKS: dict[int, dict] = {}
+
+
+def knn_counted(part: str, want: int, fn):
+    """``fn()`` with the k-NN kernel's launch count set to 0 first and read
+    after, into KNN_LAUNCHES[part]; raises unless it launched ``want``
+    times (so a route that quietly left the kernel fails)."""
+    from bliss_tpu_torch.kernels import knn
+
+    knn.LAUNCHES = 0
+    out = fn()
+    sync("cuda")
+    KNN_LAUNCHES[part] = knn.LAUNCHES
+    if knn.LAUNCHES != want:
+        raise AssertionError(f"{part}: the k-NN kernel launched {knn.LAUNCHES} times; want {want}")
+    return out
+
+
+def knn_vs_plain(fc, dim: int, label) -> dict:
+    """Phase 10 (a)'s kernel row at one width: ``knn_topk`` over all rows of
+    the card library ``fc`` against the plain version ``_block_topk`` (k + 1,
+    block SIM_BLOCK) on the same card rows. d^2 (each side's float32
+    distance squared) within 2^-20 d^2 + (D + 4) 2^-50 (|q|^2 + |f|^2): two
+    float64 sums in another order, each rounded to float32, then sqrt; the
+    float32 Gram form of the same pairs must fail it. Indices equal
+    wherever the plain d^2 of a rank is more than twice the bound from its
+    neighbours'. Both timed with CUDA events beside ``bounds.knn_work``'s."""
+    from bliss_tpu_torch.kernels import bounds, knn
+    from bliss_tpu_torch.sim.distance import _block_topk
+
+    f64 = fc.to(torch.float64)
+
+    def plain(k):
+        parts = [_block_topk(f64[b : b + SIM_BLOCK], f64, b, k) for b in range(0, SIM_N, SIM_BLOCK)]
+        return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
+
+    kd, ki = knn.knn_topk(fc, 0, SIM_N, SIM_K)
+    pd, pi = plain(SIM_K + 1)
+    sq = (f64 * f64).sum(1)
+    e = pd.double() ** 2
+    got = kd.double() ** 2
+    nbr = pi[:, :SIM_K].long()
+    bound = 2.0**-20 * e[:, :SIM_K] + (dim + 4) * 2.0**-50 * (sq[:, None] + sq[nbr])
+    err = float(((got - e[:, :SIM_K]).abs() / bound).max())
+    # the float32 Gram form of the same pairs, the cross term as one product
+    q32, f32 = fc[:, None, :], fc[nbr]
+    g32 = ((q32 * q32).sum(-1) + (f32 * f32).sum(-1)
+           - 2.0 * torch.bmm(q32, f32.transpose(1, 2)).squeeze(1)).double()
+    control = float(((g32 - e[:, :SIM_K]).abs() / bound).max())
+    padded = torch.cat([torch.full_like(e[:, :1], -np.inf), e], 1)
+    bpad = torch.cat([bound, bound[:, -1:]], 1)
+    gap = torch.minimum(padded[:, 1:-1] - padded[:, :-2], padded[:, 2:] - padded[:, 1:-1])
+    clear = gap > 2 * torch.maximum(bpad[:, :-1], bpad[:, 1:])
+    bad = int(((ki != pi[:, :SIM_K]) & clear).sum())
+    bit_rows = int(((kd == pd[:, :SIM_K]) & (ki == pi[:, :SIM_K])).all(1).sum())
+    if (ki == torch.arange(SIM_N, device=ki.device)[:, None]).any():
+        raise AssertionError(f"knn_topk D={dim} returned a query's own row")
+    if not (err <= 1 and control > 1 and bad == 0):
+        raise AssertionError(f"knn_topk D={dim} vs _block_topk: d^2 {err:.3e} of the bound (the float32 "
+                             f"Gram form {control:.3e}), {bad} indices differ where the gap allows")
+    del pd, pi, e, got, g32, f32
+    ms = cuda_ms(lambda: knn.knn_topk(fc, 0, SIM_N, SIM_K), reps=10)
+    plain_ms = cuda_ms(lambda: plain(SIM_K), reps=3)
+    bound_ms, by = bounds.bound_ms(bounds.knn_work(SIM_N, dim, SIM_K))
+    log(f"similarity (a) N={SIM_N} D={dim} k={SIM_K} knn_topk vs _block_topk on the same card rows: "
+        f"d^2 within {err:.3e} of the bound 2^-20 d^2 + (D + 4) 2^-50 (|q|^2 + |f|^2) (the float32 "
+        f"Gram form of the same pairs {control:.3e}); indices equal at all {int(clear.sum())} of "
+        f"{clear.numel()} ranks the gap allows; {bit_rows} of {SIM_N} rows bit-equal; warm median "
+        f"kernel {ms:.3f} ms (10), plain {plain_ms:.3f} ms (3), bound {bound_ms:.3f} ms ({by}) {label}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "d2_err_of_bound": err, "float32_gram_of_bound": control,
+            "bit_equal_rows": bit_rows, "ranks_checked": int(clear.sum())}
+
+
 def library_part(vectors, dim: int, device, label, rng) -> None:
     """Phase 10 (a) at one width ``dim``: ``nearest_neighbors_all``,
     ``nearest_neighbors``, ``playlist_order``, ``distance_matrix`` and
@@ -1271,7 +1355,8 @@ def library_part(vectors, dim: int, device, label, rng) -> None:
     sync(device)
 
     reset_peak(device)
-    d, idx = (t.cpu().numpy() for t in nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK))
+    d, idx = (t.cpu().numpy() for t in knn_counted(
+        f"library D={dim}", 1, lambda: nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK)))
     mem = peak_text(device)
     times = host_times(lambda: nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK), device)
     queries = np.unique(np.concatenate([rng.choice(SIM_N, SIM_QUERIES, replace=False), pairs.ravel()]))
@@ -1284,6 +1369,7 @@ def library_part(vectors, dim: int, device, label, rng) -> None:
         f"{mem}; {len(queries)} query rows ({SIM_QUERIES} seeded, every planted pair) vs float64 NumPy: "
         f"{verdict}; the float32 Gram form for the same pairs: largest twin distance "
         f"{twin32.max():.2e}, {int((twin32 > 1e-2).sum())} of {len(twin32)} above 1e-2 {label}")
+    KNN_CHECKS[dim] = knn_vs_plain(fc, dim, label)
 
     q = int(pairs[0].min())
     twin = int(pairs[0].max())
@@ -1413,9 +1499,10 @@ def store_part(vectors, device, label, rng) -> None:
         fill_s = time.perf_counter() - t0
         dev = ["--device", str(device), "store"]
         reset_peak(device)
-        _, nb_s = run_cli(dev + ["neighbors", "--top-k", str(SIM_K), path, "-o", os.path.join(d, "n.csv")])
+        _, nb_s = knn_counted("store neighbors", 1, lambda: run_cli(
+            dev + ["neighbors", "--top-k", str(SIM_K), path, "-o", os.path.join(d, "n.csv")]))
         mem = peak_text(device)
-        _, dp_s = run_cli(dev + ["dupes", path, "-o", os.path.join(d, "d.csv")])
+        _, dp_s = knn_counted("store dupes", 1, lambda: run_cli(dev + ["dupes", path, "-o", os.path.join(d, "d.csv")]))
         _, ex_s = run_cli(dev + ["export", path, "-o", os.path.join(d, "e.csv")])
         stats, st_s = run_cli(dev + ["stats", path])
         rows = read_csv(os.path.join(d, "n.csv"))[1:]
@@ -2398,10 +2485,15 @@ def serve_store_part(vectors, device, label) -> None:
                 raise AssertionError("serve (c): the daemon did not bind")
             reset_peak(device)
             times = []
-            for _ in range(2):
-                t0 = time.perf_counter()
-                r = request({"op": "neighbors", "top_k": SIM_K}, sock, timeout=600)
-                times.append(time.perf_counter() - t0)
+
+            def ask():
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    r = request({"op": "neighbors", "top_k": SIM_K}, sock, timeout=600)
+                    times.append(time.perf_counter() - t0)
+                return r
+
+            r = knn_counted("serve neighbors", 2, ask)
             mem = peak_text(device)
         finally:
             server.stop()
@@ -3241,7 +3333,7 @@ def mesh_topk_part(vectors, device, label) -> None:
     f, _ = sim_library(vectors, SIM_N, 4, SIM_DUPES, np.random.default_rng(SEED + 5))
     fc = torch.from_numpy(f).to(device)
     mesh = mesh_of((4, 1), device)
-    d, idx = sharded_distance_topk(fc, mesh, SIM_K, block=SIM_BLOCK)
+    d, idx = knn_counted("mesh 4x1", 4, lambda: sharded_distance_topk(fc, mesh, SIM_K, block=SIM_BLOCK))
     d0, idx0 = nearest_neighbors_all(fc, SIM_K, block=SIM_BLOCK)
     if not (torch.equal(d, d0.cpu()) and torch.equal(idx, idx0.cpu())):
         raise AssertionError("phase 15 (g): sharded_distance_topk differs from nearest_neighbors_all")
@@ -4005,10 +4097,10 @@ def main() -> int:
 
     # 2. build, one nvcc for each source, started together
     t0 = time.perf_counter()
-    _build.build(("fused_all", "ablate"))
-    for name in ("fused_all", "ablate"):
+    _build.build(("fused_all", "ablate", "knn"))
+    for name in ("fused_all", "ablate", "knn"):
         secs, report = _build.BUILD_INFO.get(name, (0.0, "already built"))
-        log(f"build: {name}.cu sm_90a in {secs:.1f} s (both built after "
+        log(f"build: {name}.cu sm_90a in {secs:.1f} s (all built after "
             f"{time.perf_counter() - t0:.1f} s); {ptxas_report(report)}")
 
     # 3. kernel vs plain
@@ -4365,6 +4457,14 @@ def main() -> int:
                 errs, ms, plain_ms = mesh_shard[e["name"]]
                 e["mesh_shard"] = {"max_abs_err": max(a for a, _ in errs.values()),
                                    "ms": ms, "plain_ms": plain_ms}
+    # the k-NN kernel's row: phase 10 (a)'s D = 4 check, D = 49 as a variant
+    entries.append({
+        "name": "knn", "source": "bliss_tpu_torch/kernels/csrc/knn.cu",
+        "replaces": "bliss_tpu/sim/distance.py:84 (XLA: a matmul and lax.top_k; no Pallas kernel)",
+        **{k: KNN_CHECKS[4][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "variants": {f"N={SIM_N} D={dim} k={SIM_K}": c for dim, c in KNN_CHECKS.items()},
+        "route": "cuda", "launches": KNN_LAUNCHES, "library_ms": None,
+    })
     log(f"chip_smoke took {time.perf_counter() - t_script:.1f} s, the builds included")
     log(json.dumps({"kernels": entries}))
     log(card)

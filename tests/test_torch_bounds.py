@@ -100,3 +100,12 @@ def test_prepass_bound_is_one_read():
     part = bounds.prepass_work(int(0.86 * B * L), B)
     assert part["bytes"] == 2 * int(0.86 * B * L) + 20 * B
     assert bounds.bound_ms(part)[0] == pytest.approx(0.86 * ms, rel=1e-4)
+
+
+@pytest.mark.parametrize("dim, want_ms", [(4, 1.19403), (49, 14.62687)])
+def test_knn_bound_is_every_pair_at_the_tensor_cores(dim, want_ms):
+    work = bounds.knn_work(100_000, dim, 5)
+    assert work["fp64_tc"] == 2 * 10**10 * dim
+    assert work["bytes"] == 4 * 100_000 * dim + 8 * 100_000 * 5
+    ms, by = bounds.bound_ms(work)
+    assert by == "operations" and ms == pytest.approx(want_ms, rel=1e-5)

@@ -443,6 +443,148 @@ def test_nearest_neighbors_all_on_gpu_matches_cpu(cuda):
     assert (gi[n - 200 :, 0] == np.arange(200)).all() and (gd[n - 200 :, 0] <= 1e-3).all()
 
 
+def _knn_rows(n, d, seed=7, copies=200):
+    """[n, d] float32 rows about -8 with sd 3, the last ``copies`` rows
+    (when n >= 2 copies) exact copies of the first."""
+    f = (np.random.RandomState(seed).randn(n, d) * 3 - 8).astype(np.float32)
+    if n >= 2 * copies:
+        f[n - copies :] = f[:copies]
+    return f
+
+
+def _check_knn_against_cpu(f, gd, gi, cd, ci):
+    """Distances within 1e-6 of sqrt(|q|^2 + |f|^2), the scale of the Gram
+    form's rounding (the CPU's twins read ~1e-6 where the card's read 0);
+    indices equal wherever the CPU's row has no tie within 1e-5 at that
+    rank; never the query's own row."""
+    n, k = ci.shape
+    sq = (f.astype(np.float64) ** 2).sum(1)
+    scale = np.sqrt(sq[:, None] + sq[ci.astype(np.int64)])
+    assert (np.abs(gd.astype(np.float64) - cd) <= 1e-6 * scale).all()
+    padded = np.concatenate([np.full((n, 1), -np.inf), cd, np.full((n, 1), np.inf)], axis=1)
+    clear = np.minimum(padded[:, 1:-1] - padded[:, :-2], padded[:, 2:] - padded[:, 1:-1]) > 1e-5
+    np.testing.assert_array_equal(gi[clear], ci[clear])
+    assert (gi != np.arange(n)[:, None]).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 37, 4097, 20_000])
+@pytest.mark.parametrize("d", [1, 3, 4, 5, 49, 64])
+def test_knn_kernel_matches_the_cpu_path(cuda, n, d):
+    """``nearest_neighbors_all`` on the card against the plain path on the
+    CPU for k = 1, 5, K_MAX and K_MAX + 1 (clamped to N - 1): the kernel
+    launches once a call for k <= K_MAX and not at all above, where the
+    plain blocked path answers; the planted copies come first."""
+    from bliss_tpu_torch import sim
+    from bliss_tpu_torch.kernels import knn
+
+    f = _knn_rows(n, d)
+    for k in (1, 5, knn.K_MAX, knn.K_MAX + 1):
+        keff = min(k, n - 1)
+        before = knn.LAUNCHES
+        gd, gi = sim.nearest_neighbors_all(f, k, device=cuda)
+        torch.cuda.synchronize()
+        assert knn.LAUNCHES - before == (1 if 1 <= keff <= knn.K_MAX else 0)
+        cd, ci = sim.nearest_neighbors_all(f, k, device="cpu")
+        assert gd.shape == cd.shape == (n, max(keff, 0)) and gi.dtype == torch.int32
+        if keff <= 0:
+            continue
+        gd, gi = gd.cpu().numpy(), gi.cpu().numpy()
+        _check_knn_against_cpu(f, gd, gi, cd.numpy(), ci.numpy())
+        if n >= 400:
+            twins = np.concatenate([np.arange(n - 200, n), np.arange(200)])
+            rows = np.concatenate([np.arange(200), np.arange(n - 200, n)])
+            assert (gi[rows, 0] == twins).all() and (gd[rows, 0] <= 1e-3).all()
+
+
+@pytest.mark.parametrize("d", [1, 4, 5, 49, 64])
+def test_knn_kernel_is_bit_equal_on_exact_rows(cuda, d):
+    """Dyadic rows, every product and sum exact, ties everywhere: the
+    kernel's distances and indices equal the plain version's on the card bit
+    for bit, ties in index order; the indices equal the CPU path's, and the
+    distances are the correctly rounded float32 square roots of the exact
+    d^2 (the CPU's vectorized float32 sqrt is 1 ulp off on some)."""
+    from bliss_tpu_torch import sim
+    from bliss_tpu_torch.sim.distance import _block_topk
+
+    f = (np.random.RandomState(5).randint(-3, 4, size=(4097, d)) / 2).astype(np.float32)
+    g64 = torch.from_numpy(f).to(cuda).double()
+    f64 = f.astype(np.float64)
+    for k in (1, 7, 32):
+        gd, gi = sim.nearest_neighbors_all(f, k, device=cuda)
+        parts = [_block_topk(g64[b0 : b0 + 4096], g64, b0, k) for b0 in range(0, len(f), 4096)]
+        assert torch.equal(gd, torch.cat([p[0] for p in parts])) and torch.equal(gi, torch.cat([p[1] for p in parts]))
+        _, ci = sim.nearest_neighbors_all(f, k, device="cpu")
+        gd, gi = gd.cpu().numpy(), gi.cpu().numpy()
+        np.testing.assert_array_equal(gi, ci.numpy())
+        exact = ((f64[:, None, :] - f64[gi]) ** 2).sum(-1).astype(np.float32)
+        np.testing.assert_array_equal(gd, np.sqrt(exact))
+
+
+def test_knn_kernel_answers_a_row_whatever_shares_its_launch(cuda):
+    """``block`` 1, 7 and 4096 and the mesh's shards on one card give the
+    same answers bit for bit, and so does any run of rows."""
+    from bliss_tpu_torch import sim
+    from bliss_tpu_torch.parallel import analysis_mesh, sharded_distance_topk
+    from bliss_tpu_torch.sim.distance import topk_rows
+
+    f = _knn_rows(5000, 49)
+    d0, i0 = sim.nearest_neighbors_all(f, 5, block=4096, device=cuda)
+    for block in (1, 7):
+        d, i = sim.nearest_neighbors_all(f, 5, block=block, device=cuda)
+        assert torch.equal(d, d0) and torch.equal(i, i0)
+    for shape in ((1, 1), (3, 1)):
+        mesh = analysis_mesh(*shape, devices=[cuda] * (shape[0] * shape[1]))
+        d, i = sharded_distance_topk(f, mesh, 5, block=7)
+        assert torch.equal(d, d0.cpu()) and torch.equal(i, i0.cpu())
+    g = torch.from_numpy(f).to(cuda)
+    for r0, r1 in ((0, 1), (13, 20), (777, 2777), (4999, 5000)):
+        d, i = topk_rows(g, r0, r1, 5)
+        assert torch.equal(d, d0[r0:r1]) and torch.equal(i, i0[r0:r1])
+
+
+@pytest.mark.parametrize("value", [np.inf, np.nan, -np.inf, "negative_nan"])
+def test_knn_kernel_on_nonfinite_rows_gives_the_cpu_indices(cuda, value):
+    """A row with an inf, a NaN, a -inf or a negative NaN tempo: the call
+    returns, with the CPU path's indices and NaN pattern (a NaN d^2 sorts by
+    its sign bit on both: csrc/knn.cu)."""
+    from bliss_tpu_torch import sim
+
+    f = np.random.RandomState(0).randn(8, 4).astype(np.float32)
+    f[3, 0] = np.array([0xFFC00000], np.uint32).view(np.float32)[0] if value == "negative_nan" else value
+    big = _knn_rows(3000, 4)
+    big[17, 2] = f[3, 0]
+    for rows, k in ((f, 3), (big, 5)):
+        gd, gi = sim.nearest_neighbors_all(rows, k, device=cuda)
+        torch.cuda.synchronize()
+        cd, ci = sim.nearest_neighbors_all(rows, k, device="cpu")
+        np.testing.assert_array_equal(gi.cpu().numpy(), ci.numpy())
+        np.testing.assert_array_equal(np.isnan(gd.cpu().numpy()), np.isnan(cd.numpy()))
+
+
+def test_knn_call_runs_only_its_kernels_in_memory_of_its_inputs(cuda):
+    """At N = 100 000, D = 49: a call launches the pre-pass and the search
+    and nothing else (no top-k, no elementwise pass, no GEMM), and its peak
+    device memory is the padded rows, the norms and the answers, not a
+    [block, N] matrix."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bliss_tpu_torch import sim
+
+    n, d, k = 100_000, 49, 5
+    g = torch.from_numpy(_knn_rows(n, d)).to(cuda)
+    sim.nearest_neighbors_all(g, k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.nearest_neighbors_all(g, k)
+        torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= 2 * (n * 52 * 4 + n * 8 + n * k * 8) + (1 << 21), extra
+    kernels = {e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert kernels and all("knn" in name for name in kernels), kernels
+
+
 def test_kmeans_on_gpu_matches_cpu_lloyd_from_the_same_init(cuda):
     from bliss_tpu_torch import sim
     from bliss_tpu_torch.sim.kmeans import assign, init_centroids, lloyd

@@ -136,3 +136,39 @@ def test_entry_points_take_the_bound_arguments(fn):
     order and type, that ``_build`` binds it with (the stream last)."""
     source = (CSRC / "fused_all.cu").read_text()
     assert _c_argtypes(source, fn) == _build._SIGNATURES["fused_all"][fn]
+
+
+@pytest.mark.parametrize("fn", sorted(_build._SIGNATURES["knn"]))
+def test_knn_entry_points_take_the_bound_arguments(fn):
+    """Each C entry point of csrc/knn.cu takes the arguments, in order and
+    type, that ``_build`` binds it with (the stream last)."""
+    source = (CSRC / "knn.cu").read_text()
+    assert _c_argtypes(source, fn) == _build._SIGNATURES["knn"][fn]
+
+
+def test_build_passes_each_library_its_own_flags(tmp_path, monkeypatch):
+    """``build`` gives each ``nvcc`` the shared flags and only its own
+    library's extra flags, and the extra flags are part of the build's
+    name, so a change to them rebuilds."""
+    calls = {}
+
+    class FakeNvcc:
+        def __init__(self, cmd, **_):
+            calls[Path(cmd[-1]).stem] = cmd
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+            self.returncode = 0
+
+        def communicate(self):
+            return "", ""
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    _build.build(("fused_all", "knn"))
+    assert calls["knn"][1 : 1 + len(_build.NVCC_FLAGS)] == list(_build.NVCC_FLAGS)
+    assert "--split-compile=0" in calls["knn"]
+    assert "--split-compile=0" not in calls["fused_all"]
+    name = _build._path("knn").name
+    monkeypatch.setattr(_build, "EXTRA_FLAGS", {})
+    assert _build._path("knn").name != name

@@ -21,7 +21,8 @@ from bliss_tpu.sim.distance import _block_topk as jax_block_topk
 from bliss_tpu.sim.kmeans import _pp_init as jax_pp_init
 
 from bliss_tpu_torch import sim
-from bliss_tpu_torch.sim.distance import _block_topk
+from bliss_tpu_torch.kernels import knn
+from bliss_tpu_torch.sim.distance import _block_topk, topk_rows
 from bliss_tpu_torch.sim.kmeans import assign, init_centroids, lloyd
 
 torch.set_num_threads(1)
@@ -180,6 +181,59 @@ def test_block_topk_breaks_ties_by_index():
         jd, ji = jax_block_topk(jnp.asarray(q), jnp.asarray(f), row0, 7)
         np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
         np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("value", [np.inf, np.nan, -np.inf], ids=["inf", "nan", "-inf"])
+def test_nearest_neighbors_all_nonfinite_rows_match_jax(value):
+    """A row with an inf, a NaN or a -inf tempo: the same indices as
+    ``bliss_tpu``, the same NaN pattern in the distances and the same
+    numbers elsewhere, and the same playlists. On the CPU a NaN d^2 sorts
+    by its sign bit, as the int64 keys read it (``csrc/knn.cu`` says where
+    the card puts it); the NaN row's own column, +inf, comes before its
+    positive NaNs."""
+    f = np.random.RandomState(0).randn(8, 4).astype(np.float32)
+    f[3, 0] = value
+    d, i = sim.nearest_neighbors_all(f, 3, device="cpu")
+    jd, ji = (np.asarray(x) for x in jsim.nearest_neighbors_all(f, 3))
+    np.testing.assert_array_equal(i.numpy(), ji)
+    np.testing.assert_array_equal(np.isnan(d.numpy()), np.isnan(jd))
+    np.testing.assert_allclose(d.numpy(), jd, rtol=1e-6, atol=0)
+    # a row's own column is +inf: it comes back only ahead of NaN distances
+    own = i.numpy() == np.arange(8)[:, None]
+    assert (d.numpy()[own] == np.inf).all()
+    for seed_index in range(8):
+        np.testing.assert_array_equal(sim.playlist_order(f, seed_index, device="cpu").numpy(),
+                                      np.asarray(jsim.playlist_order(jnp.asarray(f), seed_index)))
+
+
+@pytest.mark.parametrize("block", [1, 7, 4096])
+def test_topk_rows_gives_each_row_the_whole_calls_answer(block):
+    """Any run of rows through ``topk_rows`` gets the rows' answers of the
+    whole call, bit for bit, whatever ``block``: what the mesh's shards and
+    ``nearest_neighbors_all`` rely on."""
+    f = torch.from_numpy(_library(100, 49))
+    d0, i0 = sim.nearest_neighbors_all(f, 5, block=block, device="cpu")
+    for r0, r1 in [(0, 100), (0, 1), (13, 20), (99, 100), (50, 50)]:
+        d, i = topk_rows(f, r0, r1, 5, block)
+        assert d.shape == i.shape == (r1 - r0, 5)
+        assert torch.equal(d, d0[r0:r1]) and torch.equal(i, i0[r0:r1])
+
+
+@pytest.mark.parametrize("n,d,k,takes", [
+    (100, 4, 5, True), (100, 49, knn.K_MAX, True), (100, 49, knn.K_MAX + 1, False),
+    (100, knn.D_MAX, 5, True), (100, knn.D_MAX + 1, 5, False), (100, 0, 5, False), (100, 4, 0, False),
+])
+def test_kernel_route_is_decided_by_k_and_width(n, d, k, takes):
+    """A CUDA tensor goes through the kernel for 1 <= k <= K_MAX and
+    1 <= D <= D_MAX, the plain blocked path otherwise; a CPU tensor never
+    goes through it, and the wrapper refuses one."""
+    from types import SimpleNamespace
+
+    assert knn.takes(SimpleNamespace(device=torch.device("cuda"), shape=(n, d)), k) is takes
+    cpu = torch.zeros(n, max(d, 1))
+    assert not knn.takes(cpu, k)
+    with pytest.raises(ValueError):
+        knn.knn_topk(cpu, 0, n, max(k, 1))
 
 
 def _blobs(seed, n_per=100, spread=1.5):
